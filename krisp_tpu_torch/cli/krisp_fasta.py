@@ -1,0 +1,119 @@
+"""`krisp_fasta` on the PyTorch port.
+
+Takes krisp_tpu's flag surface (``krisp_tpu.cli.krisp_fasta.parse_args``)
+plus ``--device {cuda,cpu}`` (default cuda), and writes the same outputs
+through the port's engine.  Run it as
+``python -m krisp_tpu_torch.cli.krisp_fasta ...``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from krisp_tpu.cli._pipe import pipe_safe
+from krisp_tpu.cli.krisp_fasta import _design_job, _open_out, parse_args
+
+
+def _split_device(argv):
+    """(device, remaining argv): ``--device`` is the port's own flag."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ns, rest = pre.parse_known_args(argv)
+    return ns.device, rest
+
+
+@pipe_safe
+def main(argv=None):
+    from krisp_tpu.engine import render
+
+    from ..engine.pipeline import run_pipeline, solve_geometry
+    from ..metrics import GLOBAL as METRICS
+
+    device, rest = _split_device(sys.argv[1:] if argv is None else argv)
+    args = parse_args(rest)
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile-dir is not ported yet (ROADMAP.md Queue 1, item 13: "
+            "remaining CLI surface)")
+    try:
+        geom = solve_geometry(amplicon=args.amplicon,
+                              diagnostic=args.diagnostic,
+                              conserved=args.conserved,
+                              conserved_left=args.conserved_left,
+                              conserved_right=args.conserved_right)
+    except ValueError:
+        print("ERROR: Could not deduce input parameters", file=sys.stderr)
+        sys.exit(1)
+
+    start_t = time.time()
+    if args.verbose:
+        print("Finding kmer-based diagnostic regions for:", file=sys.stderr)
+        for i, f in enumerate(args.files):
+            print(f"({i}) {f}", file=sys.stderr)
+        print("With this as an outgroup:", file=sys.stderr)
+        for i, f in enumerate(args.outgroup):
+            print(f"({i}) {f}", file=sys.stderr)
+        print(file=sys.stderr)
+
+    groups = run_pipeline(args.files, args.outgroup, geom,
+                          omit_soft=args.omit_soft, workdir=args.workdir,
+                          n_devices=args.devices, device=device)
+
+    p3_args = dict(tm=tuple(args.tm), gc=tuple(args.gc),
+                   amp_size=tuple(args.amp_size),
+                   primer_size=tuple(args.primer_size),
+                   max_sec_tm=args.max_sec_tm, gc_clamp=args.gc_clamp,
+                   max_end_gc=args.max_end_gc)
+
+    out_csv, close_csv = _open_out(args.out_csv, sys.stdout)
+    out_align, close_align = _open_out(args.out_align, None)
+
+    if args.primer3:
+        from krisp_tpu.thermo.design import design_primers_for_group
+        with METRICS.stage("primer3", items=len(groups)):
+            if args.cores > 1 and len(groups) > 1:
+                import multiprocessing as mp
+                ctx = mp.get_context("spawn")
+                tasks = []
+                for group in groups:
+                    consensus = group.ingroup_consensus()
+                    tasks.append(("".join(consensus.values()),
+                                  len(consensus["forward"]),
+                                  len(consensus["diagnostic"])))
+                with ctx.Pool(min(args.cores, len(groups))) as pool:
+                    results = pool.starmap(
+                        _design_job, [(t, p3_args) for t in tasks])
+                for group, p3 in zip(groups, results):
+                    group.p3 = p3
+            else:
+                for group in groups:
+                    design_primers_for_group(group, **p3_args)
+        groups = [g for g in groups
+                  if g.p3["PRIMER_PAIR_NUM_RETURNED"] != 0]
+
+    print(render.csv_header(primer3=bool(args.primer3)), file=out_csv)
+    found = 0
+    for group in groups:
+        print(render.render_csv(group), file=out_csv)
+        if out_align is not None:
+            print(render.render_alignment(group, enable_dot=args.dot_alignment),
+                  file=out_align)
+        found += 1
+
+    if close_csv:
+        out_csv.close()
+    if out_align is not None and close_align:
+        out_align.close()
+
+    if args.verbose:
+        dt = time.time() - start_t
+        print("Stage timings:", file=sys.stderr)
+        METRICS.report()
+        print(f"=> Found {found:,} regions in {dt:.2f} seconds", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    main()
