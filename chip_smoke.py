@@ -2,27 +2,44 @@
 """Chip smoke test of the PyTorch port (krisp_tpu_torch) on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It imports no JAX.  Phases, each printing one line (any failure raises and
-exits non-zero; nothing is caught):
+It imports no JAX.  Phases, each printing one line per check (any failure
+raises and exits non-zero; nothing is caught):
 
   0. environment: torch / CUDA / nvcc versions, the card's name and power
      limit;
-  1. build both CUDA kernels from ``krisp_tpu_torch/csrc`` (build seconds);
+  1. build the three CUDA kernels from ``krisp_tpu_torch/csrc``, one nvcc
+     per source in parallel (build seconds);
   2. window-key kernel vs its plain PyTorch version on a 4 Mb buffer with
-     N and lower-case runs, at 25/1/2, 4/1/3 and 10/4/10, omit_soft off
-     and on: exact; median of 5 CUDA-event timings of each;
-  3. survivor-scan kernel vs its plain version on the sorted key table of
-     phase 4's genomes and on a table with long runs at every granularity:
-     exact; timings of both and of the key sort;
-  4. the main path through ``krisp_tpu_torch.cli.krisp_fasta.main`` on 5
-     synthetic genomes (bench.py's recipe: seed 7, 3 planted 28-base
-     regions, genomes 0-1 ingroup; plus one region whose middle base tells
-     the ingroup apart), geometry 25/1/2: at 5 x 1 Mb the CUDA and CPU runs
-     write equal, non-empty CSV and alignment bytes, and ``run_pipeline``
-     without the ingroup filter gives the same groups (flanks, mids, label
-     counts) on both devices, equal to the planted known answer; at
-     5 x 4 Mb one warm-up and 3 timed runs, with both kernels' launch
-     counters reset just before and required to have moved.
+     N and lower-case runs, at 25/1/2, 4/1/3, 10/4/10 and 30/40/30,
+     omit_soft off and on: exact; median of 5 CUDA-event timings of each;
+  3. sort kernel vs its plain version (``lsd_sort``, ``torch.sort``
+     passes) on four tables, exact, with median CUDA-event times of both:
+     the spacer path's global table (40.6M rows x 2 words), the IUPAC
+     path's rows after the prefilter (about 40M x 4, built by the
+     pipeline's own stages), the 30/40/30 table the direct path would sort
+     (40.6M x 7) and a table of heavy ties, sentinel rows and top-bit
+     words; then the survivor-scan kernel vs its plain version on the
+     tables the global stage scans, sorted by the sort kernel as the
+     pipeline sorts them (the spacer table, 2 words; the rows the
+     prefilter keeps on the IUPAC path, 4 words, and on the amplicon path,
+     7 words), and on a table with long runs at every granularity;
+  4-6. three paths through ``krisp_tpu_torch.cli.krisp_fasta.main``, on 5
+     synthetic genomes each (bench.py's recipe: seed 7, 3 planted shared
+     regions of the window length, genomes 0-1 ingroup; plus one planted
+     diagnostic region whose middle differs between ingroup and outgroup):
+       4. spacer 25/1/2 (2-bit keys);
+       5. amplicon 30/40/30 (2-bit, 7-word keys through the prefix
+          prefilter), the CLI without and with ``--primer3``;
+       6. IUPAC spacer 25/1/2 (one ambiguity letter every 100,000 bases
+          turns every key to 4 bits: 4 words, through the prefilter), the
+          CLI with ``--dot-alignment``.
+     At 5 x 1 Mb the CUDA and CPU CLI runs write equal CSV and alignment
+     bytes (at least one CSV row where the ingroup filter runs alone), and
+     ``run_pipeline`` without the ingroup filter gives the same groups
+     (flanks, mids, label counts) on both devices, equal to the planted
+     known answer.  At 5 x 4 Mb one warm-up and 3 timed runs, with every
+     launch counter reset just before and each kernel of the path required
+     to have launched.
 Then a ``details`` line with every measurement as JSON, one JSON line of
 per-kernel results, the ``nvidia-smi`` name/power line, and, last,
 ``{"ok": true, "device": {...}}``.
@@ -41,9 +58,11 @@ import numpy as np
 import torch
 
 N_FILES = 5
-GEOM = (25, 1, 2)
-L = sum(GEOM)
+SPACER = (25, 1, 2)
+AMPLICON = (30, 40, 30)
 SEED = 7
+SMALL, LARGE = 1_000_000, 4_000_000
+IUPAC_EVERY = 100_000
 
 
 def check(cond, msg):
@@ -80,23 +99,33 @@ def revcomp(s: str) -> str:
     return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
 
 
-def synth_genomes(tmpdir: Path, size: int):
+def synth_genomes(tmpdir: Path, size: int, geom, iupac: bool = False):
     """bench.py's synth_genomes (N_FILES random genomes sharing 3 planted
-    L-base regions) plus one diagnostic region: shared flanks whose middle
-    base is A in the ingroup (genomes 0-1) and C in the outgroup, so the
-    ingroup filter keeps it.  Returns (paths, planted): planted[f] is the
-    list of regions written into genome f."""
+    regions of the window length) plus one diagnostic region: shared
+    flanks whose middle is one random sequence in the ingroup (genomes 0-1)
+    and differs from it at every base in the outgroup, so the ingroup
+    filter keeps it.  ``iupac`` writes one ambiguity letter every
+    IUPAC_EVERY bases before the regions are planted.  Returns (paths,
+    planted): planted[f] is the list of regions written into genome f."""
     tmpdir.mkdir(parents=True, exist_ok=True)
+    left, mid, right = geom
+    L = sum(geom)
     rng = np.random.default_rng(SEED)
     shared = ["".join(rng.choice(list("ACGT"), size=L)) for _ in range(3)]
     diag_rng = np.random.default_rng(SEED + 1)   # leaves bench's stream as is
-    left, right = ("".join(diag_rng.choice(list("ACGT"), size=n))
-                   for n in (GEOM[0], GEOM[2]))
+    fl, fr = ("".join(diag_rng.choice(list("ACGT"), size=n))
+              for n in (left, right))
+    mid_in = "".join(diag_rng.choice(list("ACGT"), size=mid))
+    mid_out = mid_in.translate(str.maketrans("ACGT", "CATG"))
     paths, planted = [], []
     for f in range(N_FILES):
         seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=size)
+        if iupac:
+            pos = np.arange(IUPAC_EVERY // 2, size, IUPAC_EVERY)
+            seq[pos] = np.frombuffer(b"RYSWKM", np.uint8)[
+                np.arange(pos.size) % 6]
         seq = bytearray(seq.tobytes())
-        regions = [(size // 8, left + ("A" if f < 2 else "C") + right)]
+        regions = [(size // 8, fl + (mid_in if f < 2 else mid_out) + fr)]
         regions += [((i + 1) * size // (len(shared) + 1), p)
                     for i, p in enumerate(shared)]
         for pos, p in regions:
@@ -110,6 +139,15 @@ def synth_genomes(tmpdir: Path, size: int):
                 fh.write(s[i:i + 80] + "\n")
         paths.append(str(path))
     return paths, planted
+
+
+def kernel_wrappers():
+    """The kernel wrappers by name; each counts its launches."""
+    from krisp_tpu_torch.ops.pack import window_keys_both
+    from krisp_tpu_torch.ops.scan import survivor_scan
+    from krisp_tpu_torch.ops.sort import sort_words
+    return {"window_keys_both": window_keys_both, "sort_words": sort_words,
+            "survivor_scan": survivor_scan}
 
 
 def phase_env():
@@ -130,8 +168,13 @@ def phase_build():
     t0 = time.perf_counter()
     lib = build.load_library()
     dt = time.perf_counter() - t0
-    print(f"phase 1 build: {dt:.2f} s ({build.build().name})", flush=True)
-    check(lib.krisp_survivor_scan_block_rows() > 0, "kernel library broken")
+    sources = sorted(p.name for p in build.SRC_DIR.glob("*.cu"))
+    print(f"phase 1 build: {dt:.2f} s ({build.build().name}, {sources})",
+          flush=True)
+    check(len(sources) == 3, f"expected three kernel sources: {sources}")
+    check(lib.krisp_survivor_scan_block_rows() > 0
+          and lib.krisp_sort_words_block_rows() > 0
+          and lib.krisp_window_keys_max_len() > 0, "kernel library broken")
     return dt
 
 
@@ -147,7 +190,7 @@ def phase_window_keys(dev, n_bytes):
     buf[rng.random(n_bytes) < 1e-3] = ord("n")
     b = torch.from_numpy(buf).to(dev)
     results = []
-    for geom in (GEOM, (4, 1, 3), (10, 4, 10)):
+    for geom in (SPACER, (4, 1, 3), (10, 4, 10), AMPLICON):
         for omit in (False, True):
             args = (b, *geom, 2, N_FILES, omit)
             got = window_keys_both(*args)
@@ -170,26 +213,29 @@ def phase_window_keys(dev, n_bytes):
     return results
 
 
-def _sorted_table(paths, dev):
-    """The main path's global table for these genomes, built by the
-    pipeline's own table stage: keys int32[W, n] before and after the sort,
-    plus validity."""
+def _key_table(paths, geom, dev):
+    """A path's global table for these genomes, built by the pipeline's
+    own table stage: (layout, keys int32[W, n])."""
     from krisp_tpu_torch.engine.pipeline import (KmerGeometry,
                                                  genome_key_tables)
-    from krisp_tpu_torch.ops.intersect import valid_rows
-    from krisp_tpu_torch.ops.sort import lsd_sort
+    flat, layout = genome_key_tables(paths, KmerGeometry(*geom), device=dev)
+    return layout, flat
 
-    keys, layout = genome_key_tables(paths, KmerGeometry(*GEOM), device=dev)
-    flat = torch.cat(keys, dim=1)       # as fused_global_packed does
-    del keys
-    words = torch.stack(lsd_sort(list(flat))[0])
-    return layout, flat, words, valid_rows(words, layout)
+
+def _tie_table(dev, V, n):
+    """Few distinct words (heavy ties), top-bit words and sentinel rows."""
+    rng = np.random.default_rng(SEED)
+    pool = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xC0000000, 0xFFFFFFFE,
+                     0xFFFFFFFF], np.uint32)
+    words = pool[rng.integers(0, pool.size, (V, n))]
+    words[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    return torch.from_numpy(words.view(np.int32)).to(dev)
 
 
 def _long_run_table(dev, n):
     from krisp_tpu_torch.ops.encode import KeyLayout
     rng = np.random.default_rng(SEED)
-    layout = KeyLayout(*GEOM, 2, N_FILES)
+    layout = KeyLayout(*SPACER, 2, N_FILES)
     words = np.stack([rng.integers(0, 4, n).astype(np.uint32) << 28
                       for _ in range(layout.n_words)])
     fw, fsh = layout.file_word_shift()
@@ -204,20 +250,71 @@ def _long_run_table(dev, n):
             torch.from_numpy(valid).to(dev))
 
 
-def phase_scan(dev, paths):
+def _check_sort(name, table):
+    from krisp_tpu_torch.ops.sort import sort_words, sort_words_reference
+    got = sort_words(table)
+    want = sort_words_reference(table)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    check(err == 0 and torch.equal(got, want),
+          f"sort kernel differs from its plain version on {name}")
+    del got, want
+    ms = cuda_ms(lambda: sort_words(table))
+    plain_ms = cuda_ms(lambda: sort_words_reference(table))
+    V, n = table.shape
+    print(f"phase 3 sort_words {name}: {n} rows x {V} words, exact, "
+          f"kernel {ms:.3f} ms, plain (torch.sort) {plain_ms:.3f} ms",
+          flush=True)
+    return dict(table=name, rows=n, words=V, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
+def phase_sort(dev, spacer, amplicon, iupac):
+    """The sort kernel on four tables.  Returns (results, the scan phase's
+    tables {name: (layout, keys sorted by sort_words, as the pipeline's
+    global stage sorts them)}): the spacer table and the rows the
+    prefilter keeps on the IUPAC and amplicon paths."""
+    from krisp_tpu_torch.ops.intersect import prefilter_rows
+    from krisp_tpu_torch.ops.sort import sort_words
+
+    results, scan_tables = [], {}
+    layout, flat = _key_table(spacer, SPACER, dev)
+    results.append(_check_sort("spacer_path_table", flat))
+    scan_tables["spacer_path_table"] = (layout, sort_words(flat))
+    del flat
+
+    layout, flat = _key_table(iupac, SPACER, dev)
+    sub = flat[:, prefilter_rows(flat, layout, N_FILES)]
+    del flat
+    results.append(_check_sort("iupac_prefilter_subset", sub))
+    scan_tables["iupac_prefilter_subset"] = (layout, sort_words(sub))
+    del sub
+
+    layout, flat = _key_table(amplicon, AMPLICON, dev)
+    results.append(_check_sort("amplicon_direct_table", flat))
+    sub = flat[:, prefilter_rows(flat, layout, N_FILES)]
+    del flat
+    scan_tables["amplicon_prefilter_subset"] = (layout, sort_words(sub))
+    del sub
+
+    results.append(_check_sort("ties_sentinels", _tie_table(dev, 3,
+                                                            10_000_019)))
+    return results, scan_tables
+
+
+def phase_scan(dev, scan_tables):
+    """The survivor-scan kernel vs its plain version on each path's sorted
+    table (2, 4 and 7 words) and on a table of long runs: keep, counts and
+    gid exact, with median CUDA-event times of both."""
+    from krisp_tpu_torch.ops.intersect import valid_rows
     from krisp_tpu_torch.ops.scan import (survivor_scan,
                                           survivor_scan_reference)
-    from krisp_tpu_torch.ops.sort import lsd_sort
 
-    layout, flat, words, valid = _sorted_table(paths, dev)
-    sort_ms = cuda_ms(lambda: lsd_sort(list(flat)))
-    print(f"phase 3 sort: {flat.shape[1]} rows x {flat.shape[0]} words, "
-          f"torch.sort {sort_ms:.3f} ms", flush=True)
-    del flat
+    tables = {k: (layout, w, valid_rows(w, layout))
+              for k, (layout, w) in scan_tables.items()}
+    tables["long_runs"] = _long_run_table(dev, 10_000_017)
     results = []
-    for name, (layout, w, v) in (
-            ("main_path_table", (layout, words, valid)),
-            ("long_runs", _long_run_table(dev, 10_000_017))):
+    for name, (layout, w, v) in tables.items():
         args = (w, v, layout.flank_bits, layout.file_off + layout.file_bits,
                 N_FILES)
         got = survivor_scan(*args)
@@ -230,36 +327,44 @@ def phase_scan(dev, paths):
         check(n_keep > 0, f"no survivor in {name}")
         ms = cuda_ms(lambda: survivor_scan(*args))
         plain_ms = cuda_ms(lambda: survivor_scan_reference(*args))
-        results.append(dict(table=name, rows=int(w.shape[1]), n_keep=n_keep,
+        W, n = w.shape
+        results.append(dict(table=name, rows=n, words=W, n_keep=n_keep,
                             max_abs_err=max_abs_err(got, want), ms=ms,
                             plain_ms=plain_ms))
-        print(f"phase 3 survivor_scan {name}: {w.shape[1]} rows, exact, "
+        print(f"phase 3 survivor_scan {name}: {n} rows x {W} words, exact, "
               f"{n_keep} survivors, kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms", flush=True)
-    return results, sort_ms
+    return results
 
 
-def _cli(paths, device, out_dir: Path):
+def _geom_flags(geom):
+    if geom == AMPLICON:
+        return ["--conserved", str(geom[0]), "--amplicon", str(sum(geom))]
+    return ["--conserved-left", str(geom[0]), "--conserved-right",
+            str(geom[2]), "--diagnostic", str(geom[1])]
+
+
+def _cli(paths, geom, device, out_dir: Path, flags=()):
     from krisp_tpu_torch.cli.krisp_fasta import main
     csv, align = out_dir / f"{device}.csv", out_dir / f"{device}.txt"
-    rc = main([*paths[:2], "--outgroup", *paths[2:], "--conserved-left",
-               str(GEOM[0]), "--conserved-right", str(GEOM[2]),
-               "--diagnostic", str(GEOM[1]), "--device", device,
-               "--out_csv", str(csv), "--out_align", str(align)])
+    rc = main([*paths[:2], "--outgroup", *paths[2:], *_geom_flags(geom),
+               *flags, "--device", device, "--out_csv", str(csv),
+               "--out_align", str(align)])
     check(rc == 0, f"krisp_fasta exit {rc} on {device}")
     return csv.read_bytes(), align.read_bytes()
 
 
-def _planted_groups(planted):
+def _planted_groups(planted, geom):
     """Known answer: the flank groups of the planted regions (both strands)
     that every genome holds, as {(left, right): {mid: {label: count}}}."""
+    left, mid, _ = geom
     flanks = {}
     for f, regions in enumerate(planted):
         for p in regions:
             for s in (p, revcomp(p)):
-                key = (s[:GEOM[0]], s[GEOM[0] + GEOM[1]:])
+                key = (s[:left], s[left + mid:])
                 mids = flanks.setdefault(key, {})
-                labels = mids.setdefault(s[GEOM[0]:GEOM[0] + GEOM[1]], {})
+                labels = mids.setdefault(s[left:left + mid], {})
                 labels[f"genome{f}"] = labels.get(f"genome{f}", 0) + 1
     return {k: v for k, v in flanks.items()
             if len(set().union(*v.values())) == N_FILES}
@@ -270,68 +375,79 @@ def _groups_as_dict(groups):
                                 for a in g.amplicons} for g in groups}
 
 
-def phase_main_path(dev, small, large, out_dir):
+def phase_path(n, name, geom, dev, small, large, out_dir, variants, kernels):
+    """One path through the CLI: CUDA == CPU bytes at 5 x 1 Mb for each
+    flag variant (the first must hold at least one CSV row), the
+    unfiltered groups on both devices equal to the planted answer, then 3
+    timed runs at 5 x 4 Mb in which every kernel of ``kernels`` launched."""
     from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
     from krisp_tpu_torch.metrics import GLOBAL as METRICS
-    from krisp_tpu_torch.ops.pack import window_keys_both
-    from krisp_tpu_torch.ops.scan import survivor_scan
 
     (paths_s, planted), paths_l = small, large
-    t0 = time.perf_counter()
-    cuda_out = _cli(paths_s, "cuda", out_dir)
-    t_cuda = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpu_out = _cli(paths_s, "cpu", out_dir)
-    t_cpu = time.perf_counter() - t0
-    csv_rows = cuda_out[0].count(b"\n") - 1
-    check(csv_rows > 0 and len(cuda_out[1]) > 0,
-          "the ingroup filter kept nothing at 5 x 1 Mb")
-    check(cuda_out == cpu_out, "CUDA and CPU CLI outputs differ at 5 x 1 Mb")
+    small_res = []
+    for i, flags in enumerate(variants):
+        t0 = time.perf_counter()
+        cuda_out = _cli(paths_s, geom, "cuda", out_dir, flags)
+        t_cuda = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_out = _cli(paths_s, geom, "cpu", out_dir, flags)
+        t_cpu = time.perf_counter() - t0
+        csv_rows = cuda_out[0].count(b"\n") - 1
+        if i == 0:
+            check(csv_rows > 0 and len(cuda_out[1]) > 0,
+                  f"{name}: the ingroup filter kept nothing at 5 x 1 Mb")
+        check(cuda_out == cpu_out,
+              f"{name}: CUDA and CPU CLI outputs differ at 5 x 1 Mb {flags}")
+        small_res.append(dict(flags=list(flags), csv_rows=csv_rows,
+                              cuda_s=t_cuda, cpu_s=t_cpu))
+        print(f"phase {n} {name} 5 x 1 Mb {list(flags)}: CUDA CLI "
+              f"({t_cuda:.2f} s) == CPU CLI ({t_cpu:.2f} s), {csv_rows} CSV "
+              "rows", flush=True)
     # every survivor group, unfiltered: CUDA equals CPU (flanks, mids and
     # label counts) and equals the planted known answer
     unfiltered = {}
     for d in (dev, "cpu"):
         unfiltered[str(d)] = _groups_as_dict(run_pipeline(
-            paths_s[:2], paths_s[2:], KmerGeometry(*GEOM),
+            paths_s[:2], paths_s[2:], KmerGeometry(*geom),
             ingroup_filter=False, device=d))
     check(unfiltered[str(dev)] == unfiltered["cpu"],
-          "CUDA and CPU survivor groups differ at 5 x 1 Mb")
-    want = _planted_groups(planted)
+          f"{name}: CUDA and CPU survivor groups differ at 5 x 1 Mb")
+    want = _planted_groups(planted, geom)
     check(unfiltered["cpu"] == want,
-          f"survivor groups {unfiltered['cpu']} != planted {want}")
-    print(f"phase 4 main path 5 x 1 Mb: CUDA CLI ({t_cuda:.2f} s) == CPU "
-          f"CLI ({t_cpu:.2f} s), {csv_rows} CSV rows; {len(want)} planted "
-          "groups found, CUDA == CPU", flush=True)
+          f"{name}: survivor groups {unfiltered['cpu']} != planted {want}")
+    print(f"phase {n} {name} 5 x 1 Mb: {len(want)} planted groups found, "
+          "CUDA == CPU", flush=True)
 
-    _cli(paths_l, "cuda", out_dir)                      # warm-up
+    _cli(paths_l, geom, "cuda", out_dir, variants[0])          # warm-up
     METRICS.reset()
     torch.cuda.reset_peak_memory_stats(dev)
-    window_keys_both.launches = 0
-    survivor_scan.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        _cli(paths_l, "cuda", out_dir)
+        _cli(paths_l, geom, "cuda", out_dir, variants[0])
         times.append(time.perf_counter() - t0)
-    launches = {"window_keys_both": window_keys_both.launches,
-                "survivor_scan": survivor_scan.launches}
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     peak = torch.cuda.max_memory_allocated(dev)
     n_keep = METRICS.stages["pull"].items // 3
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    check(n_keep > 0, "no survivor rows at 5 x 4 Mb")
-    size = 4_000_000
-    n_keys = N_FILES * 2 * (size - L + 1)      # both strands, as bench.py
+    gather = METRICS.stages.get("gather")
+    n_pre = gather.items // 3 if gather is not None else None
+    check(all(launches[k] > 0 for k in kernels),
+          f"{name}: a kernel of the path never launched: {launches}")
+    check(n_keep > 0, f"{name}: no survivor rows at 5 x 4 Mb")
+    n_keys = N_FILES * 2 * (LARGE - sum(geom) + 1)   # both strands, as bench
     rate = n_keys / min(times)
     stages = {k: v.seconds / 3 for k, v in METRICS.stages.items()}
-    print(f"phase 4 main path 5 x 4 Mb: runs {[round(t, 4) for t in times]} "
-          f"s, {rate:,.0f} k-mers/s (best), n_keep {n_keep}, peak device "
-          f"memory {peak / 2**20:.1f} MiB, launches {launches}", flush=True)
-    print("phase 4 stages (mean s per run): "
+    print(f"phase {n} {name} 5 x 4 Mb: runs {[round(t, 4) for t in times]} "
+          f"s, {rate:,.0f} k-mers/s (best), n_pre {n_pre}, n_keep {n_keep}, "
+          f"peak device memory {peak / 2**20:.1f} MiB, launches {launches}",
+          flush=True)
+    print(f"phase {n} {name} stages (mean s per run): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
-    return dict(times_s=times, kmers_per_s=rate, n_keys=n_keys,
-                n_keep=n_keep, peak_bytes=peak, stages_s=stages,
-                launches=launches, small_cuda_s=t_cuda, small_cpu_s=t_cpu)
+    return dict(small=small_res, planted_groups=len(want), times_s=times,
+                kmers_per_s=rate, n_keys=n_keys, n_pre=n_pre, n_keep=n_keep,
+                peak_bytes=peak, stages_s=stages, launches=launches)
 
 
 def main():
@@ -347,31 +463,58 @@ def main():
     pack_res = phase_window_keys(dev, 4_063_232)
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
-        small = synth_genomes(td / "1mb", 1_000_000)
-        large = synth_genomes(td / "4mb", 4_000_000)[0]
-        scan_res, sort_ms = phase_scan(dev, large)
-        main_res = phase_main_path(dev, small, large, td)
+        genomes = {}
+        for name, geom, iupac in (("spacer", SPACER, False),
+                                  ("amplicon", AMPLICON, False),
+                                  ("iupac", SPACER, True)):
+            genomes[name] = (
+                synth_genomes(td / f"{name}_1mb", SMALL, geom, iupac),
+                synth_genomes(td / f"{name}_4mb", LARGE, geom, iupac)[0])
+        sort_res, scan_tables = phase_sort(
+            dev, *(genomes[k][1] for k in ("spacer", "amplicon", "iupac")))
+        scan_res = phase_scan(dev, scan_tables)
+        del scan_tables
+        torch.cuda.empty_cache()
+        paths = {}
+        for n, name, geom, variants, kernels in (
+                (4, "spacer", SPACER, [()], list(kernel_wrappers())),
+                (5, "amplicon", AMPLICON, [(), ("--primer3",)],
+                 list(kernel_wrappers())),
+                (6, "iupac", SPACER, [("--dot-alignment",)],
+                 ("sort_words", "survivor_scan"))):
+            out_dir = td / f"out_{name}"
+            out_dir.mkdir()
+            paths[name] = phase_path(n, name, geom, dev, *genomes[name],
+                                     out_dir, variants, kernels)
 
     main_pack = pack_res[0]
     main_scan = scan_res[0]
+    main_sort = sort_res[0]
+    main_launches = paths["spacer"]["launches"]
     kernels = [
         dict(name="window_keys_both", route="cuda",
              source="krisp_tpu_torch/csrc/window_keys.cu",
              replaces="krisp_tpu/ops/pallas_pack.py:169",
-             launches=main_res["launches"]["window_keys_both"],
+             launches=main_launches["window_keys_both"],
              max_abs_err=max(r["max_abs_err"] for r in pack_res),
              ms=main_pack["ms"], plain_ms=main_pack["plain_ms"]),
+        dict(name="sort_words", route="cuda",
+             source="krisp_tpu_torch/csrc/sort_words.cu",
+             replaces="krisp_tpu/ops/pallas_sort.py:173",
+             launches=main_launches["sort_words"],
+             max_abs_err=max(r["max_abs_err"] for r in sort_res),
+             ms=main_sort["ms"], plain_ms=main_sort["plain_ms"]),
         dict(name="survivor_scan", route="cuda",
              source="krisp_tpu_torch/csrc/survivor_scan.cu",
              replaces="krisp_tpu/ops/pallas_scan.py:218",
-             launches=main_res["launches"]["survivor_scan"],
+             launches=main_launches["survivor_scan"],
              max_abs_err=max(r["max_abs_err"] for r in scan_res),
              ms=main_scan["ms"], plain_ms=main_scan["plain_ms"]),
     ]
     print("details " + json.dumps(dict(
         gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, window_keys=pack_res, survivor_scan=scan_res,
-        sort_ms=sort_ms, main_path=main_res)))
+        build_s=build_s, window_keys=pack_res, sort_words=sort_res,
+        survivor_scan=scan_res, paths=paths)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 Takes krisp_tpu's flag surface (``krisp_tpu.cli.krisp_fasta.parse_args``)
 plus ``--device {cuda,cpu}`` (default cuda), and writes the same outputs
-through the port's engine.  Run it as
+through the port's engine: spacer geometries (``--conserved-left 25
+--conserved-right 2 --diagnostic 1``), amplicons (``--conserved 30
+--amplicon 100``, wide keys through the prefix prefilter) and inputs with
+IUPAC letters (4-bit keys).  Run it as
 ``python -m krisp_tpu_torch.cli.krisp_fasta ...``.
 """
 

@@ -32,3 +32,13 @@ def i32(u: int) -> int:
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 tensor -> int32 tensor with the same low 32 bits."""
     return ((x << 32) >> 32).to(torch.int32)
+
+
+def split_packed(packed: np.ndarray, n_words: int):
+    """krisp_tpu's packed global-stage output uint32[W + 3, cap] (n_keep at
+    ``[-1, 0]``, the prefilter's n_pre at ``[-1, 1]``) as the port's
+    (words int32[W, n_keep], counts int32[n_keep], gid int32[n_keep]) on
+    the CPU."""
+    n_keep = int(packed[-1, 0])
+    rows = keys_from_numpy(packed[:n_words + 2, :n_keep], "cpu")
+    return rows[:n_words], rows[n_words], rows[n_words + 1]

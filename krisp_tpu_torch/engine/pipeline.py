@@ -1,17 +1,22 @@
-"""End-to-end krisp_fasta spacer search on one device
-(``krisp_tpu/engine/pipeline.py``, the 2-bit single-device branch).
+"""End-to-end krisp_fasta search on one device
+(``krisp_tpu/engine/pipeline.py``, the single-device branches).
 
-  FASTA -> uint8 buffers -> host 2-bit pack + validity bitmap -> per genome:
-  upload, window keys of both strands (CUDA kernel) -> concatenate -> sort ->
-  survivor scan (CUDA kernel) -> compaction -> pull -> host decode ->
-  FlankGroup objects.
+  FASTA -> uint8 buffers -> per genome: 2-bit keys: host 2-bit pack +
+  validity bitmap, upload, window keys of both strands (CUDA kernel);
+  4-bit (IUPAC) keys: upload the bytes, window keys in torch ops -> one
+  table -> global stage -> pull -> host decode -> FlankGroup objects.
+
+The global stage is sort (CUDA kernel) -> survivor scan (CUDA kernel) ->
+compaction; wide keys (more than 2 words and a flank of 32 bits or more)
+first pass the one-word prefix prefilter and run that stage on the rows it
+keeps.
 
 ``KmerGeometry``, ``solve_geometry``, ``detect_bits``,
 ``_pack_genomes_host``, ``_encoding_tables`` and ``_group_epilogue`` are
 copies of krisp_tpu's JAX-free helpers (pinned equal by
-tests/test_torch_encode.py).  Inputs that krisp_tpu sends down another
-branch raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-it.
+tests/test_torch_encode.py).  Inputs that krisp_tpu sends down a branch the
+port lacks raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from ..convert import keys_from_numpy, keys_to_numpy
 from ..device import resolve_device
 from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
-from ..ops.intersect import extract_keys_packed_in, fused_global_packed
+from ..ops.intersect import (extract_keys_ascii, extract_keys_packed_in,
+                             global_stage)
 
 #: krisp_tpu's default KRISP_TPU_HBM_BUDGET: past it krisp_tpu takes the
 #: staged out-of-core path, which the port does not have yet
@@ -107,28 +113,20 @@ def _encoding_tables(bits: int, omit_soft: bool):
 
 def genome_key_tables(paths, geom: KmerGeometry, omit_soft: bool = False,
                       device="cuda"):
-    """The main path up to the global stage: read the FASTA ``paths``,
-    refuse inputs that krisp_tpu sends down a branch the port lacks, pad
-    every genome to one bucket, then per genome pack on the host, upload
-    and extract its sentinel-marked keys (both strands, genome id = its
-    index in ``paths``).
+    """The path up to the global stage: read the FASTA ``paths``, refuse
+    inputs past the device-memory budget, pad every genome to one bucket,
+    then per genome extract its sentinel-marked keys (both strands, genome
+    id = its index in ``paths``) into one table.  2-bit keys are packed on
+    the host and uploaded at 3 bits a base; 4-bit keys (any IUPAC letter in
+    any genome) upload the bytes as they are.
 
-    Returns (list of int32[W, 2 n_win] tables, KeyLayout)."""
+    Returns (int32[W, n_files * 2 n_win] table, KeyLayout)."""
     dev = resolve_device(device)
     n_files = len(paths)
     with METRICS.stage("read_fasta"):
         buffers = [load_buffer(path) for path in paths]
     bits = detect_bits(buffers)
-    if bits != 2:
-        raise NotImplementedError(
-            "inputs with IUPAC letters need 4-bit keys, which are not ported "
-            "yet (ROADMAP.md Queue 1, item 8: 4-bit keys)")
     layout = KeyLayout(geom.left, geom.mid, geom.right, bits, n_files)
-    if layout.n_words > 2 and layout.flank_bits >= 32:
-        raise NotImplementedError(
-            f"geometry {geom.left}/{geom.mid}/{geom.right} takes the wide-key "
-            "prefilter, which is not ported yet (ROADMAP.md Queue 1, item 7: "
-            "wide keys)")
     if 56 * 2 * sum(bucket_size(b.size) for b in buffers) > HBM_BUDGET:
         raise NotImplementedError(
             "inputs past the device-memory budget need the out-of-core path, "
@@ -139,16 +137,29 @@ def genome_key_tables(paths, geom: KmerGeometry, omit_soft: bool = False,
     stacked = np.zeros((n_files, pad), np.uint8)
     for i, buf in enumerate(buffers):
         stacked[i, :buf.size] = buf
-    keys = []
+    n_win = 2 * (pad - geom.total + 1)
+    # one table filled genome by genome: no per-genome tables to concatenate
+    flat = torch.empty((layout.n_words, n_files * n_win), dtype=torch.int32,
+                       device=dev)
+    tables = _encoding_tables(bits, omit_soft) if bits != 2 else None
     for f in range(n_files):
-        with METRICS.stage("pack+upload", items=pad, device=dev):
-            pk, vb = _pack_genomes_host(stacked[f:f + 1], omit_soft)
-            pk, vb = keys_from_numpy(pk, dev), torch.from_numpy(vb).to(dev)
-        with METRICS.stage("extract", items=2 * (pad - geom.total + 1),
-                           device=dev):
-            keys.append(extract_keys_packed_in(
-                pk, vb, f, geom.left, geom.mid, geom.right, bits, n_files))
-    return keys, layout
+        rows = flat[:, f * n_win:(f + 1) * n_win]
+        if bits == 2:
+            with METRICS.stage("pack+upload", items=pad, device=dev):
+                pk, vb = _pack_genomes_host(stacked[f:f + 1], omit_soft)
+                pk, vb = keys_from_numpy(pk, dev), torch.from_numpy(vb).to(dev)
+            with METRICS.stage("extract", items=n_win, device=dev):
+                rows.copy_(extract_keys_packed_in(
+                    pk, vb, f, geom.left, geom.mid, geom.right, bits,
+                    n_files))
+        else:
+            with METRICS.stage("upload", items=pad, device=dev):
+                buf = torch.from_numpy(stacked[f]).to(dev)
+            with METRICS.stage("extract", items=n_win, device=dev):
+                rows.copy_(extract_keys_ascii(
+                    buf, f, tables, geom.left, geom.mid, geom.right, bits,
+                    n_files))
+    return flat, layout
 
 
 def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
@@ -180,11 +191,12 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
     if ingroup_filter is None:
         ingroup_filter = geom.mid > 0 and has_outgroup
 
-    keys, layout = genome_key_tables(all_files, geom, omit_soft, dev)
+    # the table goes into global_stage in a list and is freed there as
+    # soon as the stage is done with it
+    table, layout = genome_key_tables(all_files, geom, omit_soft, dev)
+    table = [table]
     bits = layout.bits
-    words, counts, gid = fused_global_packed(keys, geom.left, geom.mid,
-                                             geom.right, bits, n_files)
-    del keys
+    words, counts, gid, _ = global_stage(table, layout, n_files)
     with METRICS.stage("pull", items=gid.numel()):
         words_h = np.ascontiguousarray(keys_to_numpy(words).T)
         cnt_h = counts.cpu().numpy().astype(np.uint32)

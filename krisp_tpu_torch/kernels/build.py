@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-Every ``krisp_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds).  The library lands in ``krisp_tpu_torch/_build/`` under a name
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-a stale binary is never loaded.  The C entries take raw device pointers and
+Every ``krisp_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``, all
+started together, and the objects link into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds).  The
+library lands in ``krisp_tpu_torch/_build/`` under a name keyed by a hash
+of the sources and flags, so an edited source rebuilds and a stale binary
+is never loaded.  The C entries take raw device pointers and
 the CUDA stream as integers and return the ``cudaError_t`` of their
 launches; ``check`` turns a non-zero code into an exception.
 
@@ -25,8 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry -> (argtypes, restype)
@@ -38,6 +39,9 @@ _SIGNATURES = {
     "krisp_survivor_scan": ([_I, _P, _P, _I, _LL, _P, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P], _I),
     "krisp_survivor_scan_block_rows": ([], _I),
+    "krisp_sort_words": ([_I, _P, _P, _I, _LL, _P, _P, _P, _P, _P], _I),
+    "krisp_sort_words_block_rows": ([], _I),
+    "krisp_sort_words_max_words": ([], _I),
     "krisp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -62,15 +66,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        errors = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        out = Path(tmp) / lib.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(out, lib)
     return lib
 
 

@@ -1,11 +1,13 @@
-"""Key plan and plain PyTorch window-key packing (2-bit).
+"""Key plan and plain PyTorch window-key packing.
 
 ``KeyLayout``, ``_word_runs`` and ``sort_perm`` are copies of the JAX-free
 helpers in ``krisp_tpu/ops/encode.py`` (pinned equal by
 tests/test_torch_encode.py).  ``pack_both_strands`` is the plain version of
-the window-key kernel: log-tree packing as in krisp_tpu's
-``window_keys_tree``, in int64 so every shift is defined, with the words
-returned as int32 bit patterns.
+the 2-bit window-key kernel: log-tree packing as in krisp_tpu's
+``window_keys_tree``.  ``window_keys_bits`` packs keys of any width base by
+base; krisp_tpu has no Pallas kernel for the 4-bit (IUPAC) keys it serves,
+so these torch ops are their port.  Packing runs in int64 so every shift is
+defined, and the words come back as int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -111,6 +113,16 @@ def layout_runs(layout: KeyLayout):
     return _word_runs(perm, tuple(off_flank) + tuple(off_mid), layout.bits)
 
 
+def encode_ascii(ascii_u8: torch.Tensor, code_table, valid_table):
+    """ASCII uint8[P] -> (codes int64[P], valid bool[P]) through the
+    per-byte tables; invalid bases get code 0."""
+    dev = ascii_u8.device
+    idx = ascii_u8.to(torch.int64)
+    codes = torch.as_tensor(code_table, device=dev).to(torch.int64)[idx]
+    valid = torch.as_tensor(valid_table, device=dev)[idx]
+    return torch.where(valid, codes, 0), valid
+
+
 def window_validity(valid: torch.Tensor, L: int) -> torch.Tensor:
     """valid[i] per base -> ok[i] per window start (all L bases valid)."""
     bad = (~valid).to(torch.int64)
@@ -191,13 +203,53 @@ def window_keys_tree(ascii_u8: torch.Tensor, code_table, valid_table,
     """krisp_tpu's ``window_keys_tree`` (2-bit, table-driven encode):
     returns (ok bool[2 n_win], words list of W int32[2 n_win]), forward rows
     first, then reverse complements; the genome-id field is zero."""
-    dev = ascii_u8.device
-    idx = ascii_u8.to(torch.int64)
-    valid = torch.as_tensor(valid_table, device=dev)[idx]
-    codes = torch.as_tensor(code_table, device=dev).to(torch.int64)[idx]
-    codes = torch.where(valid, codes, 0)
-    comp = torch.as_tensor(comp_table, device=dev).to(torch.int64)[codes]
+    codes, valid = encode_ascii(ascii_u8, code_table, valid_table)
+    comp = torch.as_tensor(comp_table, device=codes.device).to(
+        torch.int64)[codes]
     layout = KeyLayout(left, mid, right, 2, n_files)
     ok, fwd, rc = pack_both_strands(codes, comp, valid, layout)
     words = torch.cat([fwd, rc], dim=1)
     return torch.cat([ok, ok]), list(words)
+
+
+def pack_windows_at(codes: torch.Tensor, perm, offsets, bits: int,
+                    n_win: int, n_words: int):
+    """Pack window bases into key words at explicit bit offsets.
+
+    codes: int64[N]; perm: base index within the window per field slot;
+    offsets: absolute bit offset per slot.  Returns n_words int32[n_win]."""
+    per_word = collections.defaultdict(list)
+    for p, off in zip(perm, offsets):
+        per_word[off // 32].append((p, off % 32))
+    words = []
+    for w in range(n_words):
+        acc = torch.zeros(n_win, dtype=torch.int64, device=codes.device)
+        for p, bit in per_word.get(w, []):
+            acc |= codes[p:p + n_win] << (32 - bit - bits)
+        words.append(to_i32(acc))
+    return words
+
+
+def window_keys_bits(ascii_u8: torch.Tensor, code_table, valid_table,
+                     comp_table, left: int, mid: int, right: int, bits: int,
+                     n_files: int):
+    """krisp_tpu's ``window_keys_bits``: window keys straight into the
+    bit-packed KeyLayout, base by base, for any ``bits``.
+
+    Returns (ok bool[2 n_win], words list of W int32[2 n_win]), forward rows
+    first, then reverse complements; the genome-id field is zero."""
+    L = left + mid + right
+    layout = KeyLayout(left, mid, right, bits, n_files)
+    codes, valid = encode_ascii(ascii_u8, code_table, valid_table)
+    ok = window_validity(valid, L)
+    n_win = ok.numel()
+    perm = sort_perm(left, mid, right)
+    off_flank, off_mid = layout.base_offsets()
+    offs = off_flank + off_mid
+    comp = torch.as_tensor(comp_table, device=codes.device).to(
+        torch.int64)[codes]
+    fwd = pack_windows_at(codes, perm, offs, bits, n_win, layout.n_words)
+    rc = pack_windows_at(comp, tuple(L - 1 - p for p in perm), offs, bits,
+                         n_win, layout.n_words)
+    words = [torch.cat([a, b]) for a, b in zip(fwd, rc)]
+    return torch.cat([ok, ok]), words

@@ -1,14 +1,18 @@
 """Multi-way intersection of per-genome k-mer key tables
-(``krisp_tpu/ops/intersect.py``, the 2-bit spacer path).
+(``krisp_tpu/ops/intersect.py``).
 
 Every genome's windows become sentinel-marked KeyLayout keys with the genome
-id in the key (``extract_keys_packed_in``); the global stage concatenates
-them, sorts, marks survivors (flank groups present in all genomes) and
-compacts them (``fused_global_packed``).
+id in the key (``extract_keys_packed_in`` from the 2-bit host pack,
+``extract_keys_ascii`` from the raw bytes on the 4-bit route); the global
+stage (``global_stage``) sorts them, marks survivors (flank groups present
+in all genomes) and compacts them.  Wide keys first pass the prefilter
+(``prefilter_rows``): it sorts one prefix|genome word with row ids, keeps
+the rows whose flank prefix group spans all genomes, and the exact
+full-width stage runs on those rows only.
 
 PyTorch sizes outputs at run time, so compaction is one ``torch.nonzero``
-(one host sync, exact size).  The TPU's capped two-level compaction and its
-overflow retry are not needed.
+(one host sync, exact size).  The TPU's capped compaction, its padding and
+its overflow retries are not needed.
 """
 
 from __future__ import annotations
@@ -17,10 +21,10 @@ import torch
 
 from ..convert import i32
 from ..metrics import GLOBAL as METRICS
-from .encode import KeyLayout
+from .encode import KeyLayout, window_keys_bits
 from .pack import window_keys_both
-from .scan import survivor_scan
-from .sort import lsd_sort
+from .scan import _masked_head, _run_heads, survivor_scan
+from .sort import sort_with_rowid, sort_words
 
 SENTINEL = -1   # the all-ones u32 word as an int32 bit pattern
 
@@ -41,21 +45,28 @@ def unpack_genomes(packed: torch.Tensor, vbits: torch.Tensor) -> torch.Tensor:
 
 
 def _all_window_keys(buffer: torch.Tensor, file_idx: int, left: int,
-                     mid: int, right: int, bits: int,
-                     n_files: int) -> torch.Tensor:
+                     mid: int, right: int, bits: int, n_files: int,
+                     tables=None) -> torch.Tensor:
     """Window keys of one genome buffer (uint8[P]), forward then reverse
     strand: int32[W, 2 n_win] with genome id ``file_idx`` OR'd in and
-    windows that are not all A/C/G/T set to SENTINEL."""
-    if bits != 2:
-        raise NotImplementedError(
-            "4-bit (IUPAC) keys are not ported yet (ROADMAP.md Queue 1, "
-            "item 8: 4-bit keys)")
+    windows that are not all valid bases set to SENTINEL.
+
+    2-bit keys come from the window-key kernel, whose validity is A/C/G/T
+    by arithmetic (the softmask policy is already in the buffer); other
+    widths from ``window_keys_bits`` with ``tables`` = (code, valid, comp)
+    per-byte tables."""
     layout = KeyLayout(left, mid, right, bits, n_files)
     fword, fshift = layout.file_word_shift()
-    ok, fwd, rc = window_keys_both(buffer, left, mid, right, bits, n_files)
-    words = torch.cat([fwd, rc], dim=1)
+    if bits == 2:
+        ok, fwd, rc = window_keys_both(buffer, left, mid, right, bits,
+                                       n_files)
+        ok, words = torch.cat([ok, ok]), torch.cat([fwd, rc], dim=1)
+    else:
+        ok, words = window_keys_bits(buffer, *tables, left, mid, right, bits,
+                                     n_files)
+        words = torch.stack(words)
     words[fword] |= i32(file_idx << fshift)
-    return torch.where(torch.cat([ok, ok]), words, SENTINEL)
+    return torch.where(ok, words, SENTINEL)
 
 
 def extract_keys_packed_in(packed_row: torch.Tensor, vbits_row: torch.Tensor,
@@ -69,6 +80,19 @@ def extract_keys_packed_in(packed_row: torch.Tensor, vbits_row: torch.Tensor,
     """
     buffer = unpack_genomes(packed_row, vbits_row)[0]
     return _all_window_keys(buffer, file_idx, left, mid, right, bits, n_files)
+
+
+def extract_keys_ascii(buffer: torch.Tensor, file_idx: int, tables,
+                       left: int, mid: int, right: int, bits: int,
+                       n_files: int) -> torch.Tensor:
+    """``extract_keys_packed_in`` for the 4-bit route: one genome's raw
+    ASCII bytes (uint8[P]) and the (code, valid, comp) tables of
+    ``engine.pipeline._encoding_tables``, which carry the softmask
+    policy.  Returns int32[W, 2 n_win]."""
+    if bits == 2:
+        raise ValueError("2-bit keys come from extract_keys_packed_in")
+    return _all_window_keys(buffer, file_idx, left, mid, right, bits,
+                            n_files, tables)
 
 
 def compact_rows(arrays, keep: torch.Tensor):
@@ -86,28 +110,96 @@ def valid_rows(keys: torch.Tensor, layout: KeyLayout) -> torch.Tensor:
     return field != layout.file_sentinel
 
 
-def _global_tail(flat: torch.Tensor, layout: KeyLayout, n_files: int):
-    """Sort -> survivor scan -> compaction over sentinel-marked keys
-    int32[W, n].  Returns (words int32[W, n_keep], counts int32[n_keep],
-    gid int32[n_keep])."""
+def prefilter_rows(flat: torch.Tensor, layout: KeyLayout,
+                   n_files: int) -> torch.Tensor:
+    """Row ids (int64) of the rows of sentinel-marked keys int32[W, n]
+    whose flank prefix group spans all ``n_files`` genomes.
+
+    The prefix key is the leading ``32 - file_bits`` bits of word 0 with the
+    genome id in the low ``file_bits``; sorted with row ids, the survivor
+    test of ``survivor_mark_bits`` runs over it with the prefix as the
+    flank.  The survivors are a superset of the true survivor set, and
+    every flank group inside a surviving prefix group is kept whole."""
+    n = flat.shape[1]
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=flat.device)
+    fw, fsh = layout.file_word_shift()
+    fb, sent = layout.file_bits, layout.file_sentinel
+    # temporaries are dropped as soon as they are dead: beside the table,
+    # they set the peak device memory of the wide-key paths
+    field = (flat[fw] >> fsh) & sent
+    pk = (flat[0] & i32((0xFFFFFFFF >> fb) << fb)) | field
+    del field
+    pk_s, rowid = sort_with_rowid(pk)
+    del pk
+    head_pre = _masked_head(pk_s[None], 32 - fb)
+    valid = (pk_s & sent) != sent
+    x = _run_heads(pk_s[None]) & valid
+    del pk_s
+    c = torch.cumsum(x, 0)
+    # krisp_tpu's base (a running max of c - x at group heads) and endc (a
+    # reverse running min of c at group tails) are, as c never decreases,
+    # the values at the row's own group head and tail: two gathers.  With
+    # torch.cummax and torch.cummin this stage took 0.25 s at 40.6M rows
+    # on an H100, against 0.012 s
+    heads = torch.nonzero(head_pre).squeeze(1)
+    tails = torch.cat([heads[1:] - 1, heads.new_full((1,), n - 1)])
+    genomes = c[tails] - c[heads] + x[heads]   # distinct valid genomes
+    del c, x, heads, tails
+    group = torch.cumsum(head_pre, 0)
+    group -= 1
+    survive = genomes[group] == n_files
+    del group, genomes
+    survive &= valid
+    (kept,), _ = compact_rows([rowid], survive)
+    return kept
+
+
+def global_stage(table: list, layout: KeyLayout, n_files: int,
+                 prefilter: bool | None = None):
+    """The global stage over sentinel-marked keys: [prefilter ->] sort ->
+    survivor scan -> compaction.
+
+    ``table`` is a one-element list holding the keys int32[W, n]; the
+    stage takes the tensor out of it, so the table is freed as soon as the
+    stage is done with it (after the prefilter's gather, or after the
+    sort).  ``prefilter`` None applies krisp_tpu's gate: wide keys whose
+    first word is all flank take the one-word prefix prefilter.  Returns
+    (words int32[W, n_keep], counts int32[n_keep], gid int32[n_keep],
+    n_pre): krisp_tpu's packed rows ``[:W, :n_keep]``, ``[W, :n_keep]``,
+    ``[W + 1, :n_keep]`` and the rows the prefilter kept (n without it).
+    Group ids equal krisp_tpu's: its cap padding is sentinel rows, which
+    sort last."""
+    flat = table.pop()
     dev = flat.device
-    with METRICS.stage("sort", items=flat.shape[1], device=dev):
-        keys = torch.stack(lsd_sort(list(flat))[0])
+    if prefilter is None:
+        prefilter = layout.n_words > 2 and layout.flank_bits >= 32
+    n_pre = flat.shape[1]
+    if prefilter:
+        with METRICS.stage("prefilter", items=n_pre, device=dev):
+            kept = prefilter_rows(flat, layout, n_files)
+        n_pre = kept.numel()
+        with METRICS.stage("gather", items=n_pre, device=dev):
+            flat = flat[:, kept]
+        del kept
+    with METRICS.stage("sort", items=n_pre, device=dev):
+        keys = sort_words(flat)   # sort_rows' backend, without its list
+    del flat
     with METRICS.stage("scan", device=dev):
         keep, counts, gid = survivor_scan(
             keys, valid_rows(keys, layout), layout.flank_bits,
             layout.file_off + layout.file_bits, n_files)
     with METRICS.stage("compact", device=dev):
         (words, counts, gid), _ = compact_rows([keys, counts, gid], keep)
-    return words, counts, gid
+    return words, counts, gid, n_pre
 
 
-def fused_global_packed(keys, left: int, mid: int, right: int, bits: int,
-                        n_files: int):
-    """Global stage over per-genome ``extract_keys_packed_in`` outputs:
-    concatenate, sort, mark survivors, compact.  Returns (words int32[W,
-    n_keep], counts int32[n_keep], gid int32[n_keep]) in sorted-key order —
-    krisp_tpu's packed rows ``[:W, :n_keep]``, ``[W, :n_keep]`` and
-    ``[W + 1, :n_keep]``."""
+def fused_prefilter_global(keys, left: int, mid: int, right: int, bits: int,
+                           n_files: int):
+    """krisp_tpu's ``fused_prefilter_global`` over per-genome key tables:
+    ``global_stage`` with the prefilter on.  Returns (words, counts, gid,
+    n_pre): krisp_tpu's packed rows ``[:W, :n_keep]``, ``[W, :n_keep]``,
+    ``[W + 1, :n_keep]`` and ``[-1, 1]``."""
     layout = KeyLayout(left, mid, right, bits, n_files)
-    return _global_tail(torch.cat(list(keys), dim=1), layout, n_files)
+    return global_stage([torch.cat(list(keys), dim=1)], layout, n_files,
+                        prefilter=True)

@@ -3,7 +3,8 @@
 
 Counterpart of ``krisp_tpu/ops/pallas_scan.py:pallas_survivor_scan``; the
 plain version is ``krisp_tpu/ops/intersect.py:survivor_mark_bits``
-(unweighted) written in torch.  Unlike the TPU kernel, any row count works.
+(unweighted) written in torch.  Unlike the TPU kernel, any row count works,
+0 included (the prefilter can keep no row).
 """
 
 from __future__ import annotations
@@ -35,10 +36,18 @@ def _reverse_cummin(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x.flip(0), 0).values.flip(0)
 
 
+def _empty_outputs(device):
+    return (torch.zeros(0, dtype=torch.bool, device=device),
+            torch.zeros(0, dtype=torch.int32, device=device),
+            torch.zeros(0, dtype=torch.int32, device=device))
+
+
 def survivor_scan_reference(words: torch.Tensor, valid: torch.Tensor,
                             flank_bits: int, ff_bits: int, n_files: int):
     """Plain PyTorch version of ``survivor_scan``, on any device."""
     n = words.shape[1]
+    if n == 0:
+        return _empty_outputs(words.device)
     head_full = _run_heads(words)
     head_ff = _masked_head(words, ff_bits)
     head_flank = _masked_head(words, flank_bits)
@@ -82,6 +91,8 @@ def survivor_scan(words: torch.Tensor, valid: torch.Tensor, flank_bits: int,
     W, n = words.shape
     if n >= BIG_I32:
         raise ValueError(f"{n} rows exceed the int32 row index")
+    if n == 0:
+        return _empty_outputs(words.device)
     words, valid = words.contiguous(), valid.contiguous()
     lib = build.load_library()
     dev = words.device

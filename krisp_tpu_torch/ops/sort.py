@@ -1,12 +1,19 @@
-"""Stable lexicographic sort of multi-word u32 keys (``krisp_tpu/ops/sort.py``).
+"""Lexicographic sort of multi-word u32 keys (``krisp_tpu/ops/sort.py``):
+the CUDA radix sort ``csrc/sort_words.cu`` and its plain PyTorch version.
 
 Key words are int32 tensors holding u32 bit patterns, most significant
-first.  Adjacent words fuse into one int64 digit whose signed order equals
-the unsigned order of the word pair (the high word is biased by 2**31), so a
-60-bit spacer key sorts in one ``torch.sort`` with nothing carried.  Wider
-keys sort by least-significant-digit passes of stable sorts.
+first.  ``sort_words`` is the row sort of every device path; on a CUDA
+tensor it launches the kernel (the counterpart of
+``krisp_tpu/ops/pallas_sort.py:bitonic_sort_words``).  ``sort_rows`` keeps
+krisp_tpu's signature over it, for the differential tests.  The TPU's
+backend switch is not carried over: on the card the kernel *is*
+``sort_rows``' backend.
 
-The port has one sort; the TPU's backend switch is not carried over.
+``lsd_sort`` is the plain version: adjacent words fuse into one int64 digit
+whose signed order equals the unsigned order of the word pair (the high
+word is biased by 2**31), so a 60-bit spacer key sorts in one
+``torch.sort``; wider keys sort by least-significant-digit passes of stable
+sorts.  It also serves ``sort_rows`` calls that carry ordered payloads.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import to_i32
+from ..kernels import build
 
 _BIAS = -(1 << 31)   # XOR with INT32_MIN maps unsigned order to signed order
 
@@ -73,5 +81,80 @@ def lsd_sort(keys, payloads=()):
             [p[perm] for p in payloads])
 
 
-#: krisp_tpu's name for the row sort; with no backend switch it is lsd_sort
-sort_rows = lsd_sort
+def sort_words_reference(stacked: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``sort_words``: ``lsd_sort`` over the rows."""
+    return torch.stack(lsd_sort(list(stacked))[0])
+
+
+def sort_words(stacked: torch.Tensor) -> torch.Tensor:
+    """Rows of int32[V, n] (u32 bit patterns, word 0 most significant) in
+    ascending unsigned lexicographic order; all-ones sentinel rows last.
+
+    Stability is not promised (``bitonic_sort_words``' contract); equal rows
+    are identical, so the result is exact either way.  A CUDA tensor runs
+    the kernel (or raises); a CPU tensor runs the plain version.
+    """
+    if stacked.device.type == "cpu":
+        return sort_words_reference(stacked)
+    if stacked.device.type != "cuda":
+        raise ValueError(f"unsupported device {stacked.device}")
+    if stacked.dtype != torch.int32 or stacked.dim() != 2:
+        raise ValueError("stacked must be an int32 [V, n] tensor")
+    V, n = stacked.shape
+    if n >= 2**31:
+        raise ValueError(f"{n} rows exceed the kernel's 32-bit row ids")
+    out = torch.empty_like(stacked, memory_format=torch.contiguous_format)
+    if n == 0:
+        return out
+    lib = build.load_library()
+    if not 1 <= V <= lib.krisp_sort_words_max_words():
+        raise ValueError(f"{V} words per row; the kernel takes 1 to "
+                         f"{lib.krisp_sort_words_max_words()}")
+    stacked = stacked.contiguous()
+    dev = stacked.device
+    nb = -(-n // lib.krisp_sort_words_block_rows())
+    scratch = torch.empty(V * n if V <= 2 else 4 * n, dtype=torch.int32,
+                          device=dev)
+    hist = torch.empty(4 * V * 256, dtype=torch.int32, device=dev)
+    hist_host = torch.empty(4 * V * 256, dtype=torch.int32)
+    counts = torch.empty(256 * nb, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.krisp_sort_words(
+        dev.index, stream, stacked.data_ptr(), V, n, out.data_ptr(),
+        scratch.data_ptr(), hist.data_ptr(), hist_host.data_ptr(),
+        counts.data_ptr()), "sort_words")
+    sort_words.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CUDA calls only)
+sort_words.launches = 0
+
+
+def sort_rows(words, payloads=(), order_free_payloads=False):
+    """Lexicographic sort of multi-word rows (``krisp_tpu``'s
+    ``sort_rows``).
+
+    Semantics equal ``lsd_sort`` (stable) except that when
+    ``order_free_payloads`` is set the caller asserts payload order within
+    equal-key runs is immaterial, so the payloads sort as trailing words.
+    Returns (keys_sorted list, payloads_sorted list).  The pipeline sorts a
+    stacked [W, n] table with ``sort_words`` directly; this list signature
+    and the payload branches are krisp_tpu's, kept so the differential
+    tests hold the two packages to one contract.
+    """
+    words, payloads = list(words), list(payloads)
+    if payloads and not order_free_payloads:
+        return lsd_sort(words, payloads)
+    out = sort_words(torch.stack(words + payloads))
+    return list(out[:len(words)]), list(out[len(words):])
+
+
+def sort_with_rowid(key_word: torch.Tensor):
+    """Stable sort of one u32 key word: (key_sorted int32, row ids int64).
+
+    The key biased by 2**31 sorts as a signed int32 in the unsigned order
+    of the word; a stable ``torch.sort`` returns the row ids as its indices
+    (krisp_tpu uses ``jax.lax.sort`` here too, not a Pallas kernel)."""
+    out = torch.sort(key_word ^ _BIAS, stable=True)
+    return out.values ^ _BIAS, out.indices

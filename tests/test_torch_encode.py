@@ -119,3 +119,26 @@ def test_window_keys_tree_matches_jax(geom):
     for wj, wt in zip(words_j, words_t):
         np.testing.assert_array_equal(keys_to_numpy(wt)[ok_j],
                                       np.asarray(wj)[ok_j])
+
+
+@pytest.mark.parametrize("geom", [(25, 1, 2), (4, 1, 3), (30, 40, 30)])
+@pytest.mark.parametrize("omit_soft", [False, True])
+def test_window_keys_bits_matches_jax(geom, omit_soft):
+    """4-bit (IUPAC) window keys: the softmask policy lives in the
+    validity table, so lower-case windows drop out under omit_soft."""
+    rng = np.random.default_rng(sum(geom) + omit_soft)
+    alphabet = np.frombuffer(b"ACGTRYKMSWN", np.uint8)
+    buf = rng.choice(alphabet, size=3000, p=[0.24] * 4 + [0.005] * 6 + [0.01])
+    for start in (200, 1400, 2500):                # soft-masked runs
+        buf[start:start + 150] |= 0x20
+    tables = JP._encoding_tables(4, omit_soft)
+    ok_j, words_j = JE.window_keys_bits(buf, *tables, *geom, 4, 5)
+    ok_t, words_t = TE.window_keys_bits(torch.from_numpy(buf), *tables,
+                                        *geom, 4, 5)
+    ok_j = np.asarray(ok_j)
+    assert ok_j.any() and not ok_j.all()
+    np.testing.assert_array_equal(ok_t.numpy(), ok_j)
+    assert len(words_t) == TE.KeyLayout(*geom, 4, 5).n_words
+    for wj, wt in zip(words_j, words_t):
+        assert wt.dtype == torch.int32
+        np.testing.assert_array_equal(keys_to_numpy(wt), np.asarray(wj))

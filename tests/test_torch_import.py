@@ -19,6 +19,11 @@ def test_port_imports_without_jax():
             "import krisp_tpu_torch.engine.pipeline\n"
             "import krisp_tpu_torch.cli.krisp_fasta\n"
             "import krisp_tpu_torch.ops.pack, krisp_tpu_torch.ops.scan\n"
+            "import krisp_tpu_torch.ops.sort, krisp_tpu_torch.ops.encode\n"
+            "import krisp_tpu_torch.ops.intersect, krisp_tpu_torch.convert\n"
+            "from krisp_tpu_torch.ops.sort import sort_words, sort_rows\n"
+            "from krisp_tpu_torch.ops.intersect import ("
+            "global_stage, fused_prefilter_global, extract_keys_ascii)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'triton' not in sys.modules\n"
             "from krisp_tpu_torch.kernels import build\n"

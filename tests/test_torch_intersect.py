@@ -14,6 +14,7 @@ from krisp_tpu.engine import pipeline as JP  # noqa: E402
 from krisp_tpu.ops import intersect as JI  # noqa: E402
 from krisp_tpu_torch.convert import keys_from_numpy, keys_to_numpy  # noqa: E402
 from krisp_tpu_torch.engine import pipeline as TP  # noqa: E402
+from krisp_tpu_torch.ops.encode import KeyLayout  # noqa: E402
 from krisp_tpu_torch.ops import intersect as TI  # noqa: E402
 
 N_FILES = 3
@@ -59,6 +60,17 @@ def _port_keys(stacked, geom, omit_soft=False):
     return keys
 
 
+def _port_global(keys, geom):
+    """The port's global stage over per-genome tables; (words, counts,
+    gid)."""
+    layout = KeyLayout(*geom, 2, N_FILES)
+    table = [torch.cat(keys, dim=1)]
+    words, counts, gid, n_pre = TI.global_stage(table, layout, N_FILES)
+    assert table == []                              # the stage took it
+    assert n_pre == sum(k.shape[1] for k in keys)   # no prefilter
+    return words, counts, gid
+
+
 def _assert_global_equal(got, packed, W):
     words, counts, gid = got
     n_keep = int(packed[-1, 0])
@@ -83,12 +95,10 @@ def test_extract_and_global_match_jax(geom):
         tuple(j_keys), left=geom[0], mid=geom[1], right=geom[2], bits=2,
         n_files=N_FILES, cap=1 << 16))
     W = j_keys[0].shape[0]
-    _assert_global_equal(TI.fused_global_packed(t_keys, *geom, 2, N_FILES),
-                         packed, W)
+    _assert_global_equal(_port_global(t_keys, geom), packed, W)
     # cross-fed: krisp_tpu's per-genome tables into the port's global stage
     fed = [keys_from_numpy(np.asarray(k), "cpu") for k in j_keys]
-    _assert_global_equal(TI.fused_global_packed(fed, *geom, 2, N_FILES),
-                         packed, W)
+    _assert_global_equal(_port_global(fed, geom), packed, W)
 
 
 def test_extract_omit_soft_folds_into_bitmap():

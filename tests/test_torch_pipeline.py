@@ -83,16 +83,59 @@ def test_cli_matches_jax(tmp_path, monkeypatch, flags):
         assert outs["port"][0].count(b"\n") > 1   # header plus results
 
 
+#: (geometry, alphabet, omit_soft): the wide-key prefilter (30/40/30),
+#: a 4-word key whose 20-bit flank skips it (5/40/5), and IUPAC input,
+#: which turns every key to 4 bits (25/1/2 takes the prefilter, 4/1/3 not)
+WIDE_CASES = [((30, 40, 30), "ACGTNacgt", False),
+              ((5, 40, 5), "ACGTNacgt", True),
+              ((25, 1, 2), "ACGTRYNacgt", False),
+              ((25, 1, 2), "ACGTRYNacgt", True),
+              ((4, 1, 3), "ACGTRYN", False)]
+
+
+@pytest.mark.parametrize("geom,alphabet,omit_soft", WIDE_CASES)
+def test_run_pipeline_wide_and_iupac_match_jax(tmp_path, geom, alphabet,
+                                               omit_soft):
+    paths = _genomes(tmp_path, sum(geom), geom, alphabet=alphabet)
+    ins, outs = paths[:IN_COUNT], paths[IN_COUNT:]
+    want = JP.run_pipeline(ins, outs, JP.KmerGeometry(*geom),
+                           omit_soft=omit_soft)
+    got = TP.run_pipeline(ins, outs, TP.KmerGeometry(*geom),
+                          omit_soft=omit_soft, device="cpu")
+    assert len(want) > 0
+    assert _render(got) == _render(want)
+
+
+@pytest.mark.parametrize("case", ["amplicon", "amplicon_primer3",
+                                  "iupac_dot"])
+def test_cli_wide_and_iupac_match_jax(tmp_path, monkeypatch, case):
+    """The README's amplicon example (--conserved 30 --amplicon 100, with
+    and without --primer3) and an IUPAC spacer search (--dot-alignment)."""
+    monkeypatch.setenv("KRISP_TPU_CACHE", str(tmp_path / "jax_cache"))
+    if case.startswith("amplicon"):
+        paths = _genomes(tmp_path, 100, (30, 40, 30))
+        flags = ["--conserved", "30", "--amplicon", "100"]
+        flags += ["--primer3"] if case == "amplicon_primer3" else []
+    else:
+        paths = _genomes(tmp_path, 28, (25, 1, 2), alphabet="ACGTRYNacgt")
+        flags = ["--conserved-left", "25", "--conserved-right", "2",
+                 "--diagnostic", "1", "--dot-alignment"]
+    args = [*paths[:IN_COUNT], "--outgroup", *paths[IN_COUNT:], *flags]
+    outs = {}
+    for name, main, extra in (("jax", jax_main, []),
+                              ("port", port_main, ["--device", "cpu"])):
+        csv, align = tmp_path / f"{name}.csv", tmp_path / f"{name}.txt"
+        assert main(extra + args + ["--out_csv", str(csv),
+                                    "--out_align", str(align)]) == 0
+        outs[name] = (csv.read_bytes(), align.read_bytes())
+    assert outs["port"] == outs["jax"]
+    if case != "amplicon_primer3":
+        assert outs["port"][0].count(b"\n") > 1   # header plus results
+
+
 def test_unported_branches_raise(tmp_path):
     geom = TP.KmerGeometry(4, 1, 3)
     paths = _genomes(tmp_path, 3, (4, 1, 3))
-    (tmp_path / "iupac").mkdir()
-    iupac = _genomes(tmp_path / "iupac", 4, (4, 1, 3), alphabet="ACGTRYN")
-    with pytest.raises(NotImplementedError, match="4-bit"):
-        TP.run_pipeline(iupac[:1], iupac[1:], geom, device="cpu")
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        TP.run_pipeline(paths[:1], paths[1:], TP.KmerGeometry(30, 40, 30),
-                        device="cpu")
     with pytest.raises(NotImplementedError, match="workdir"):
         TP.run_pipeline(paths[:1], paths[1:], geom, workdir=str(tmp_path),
                         device="cpu")
