@@ -39,7 +39,27 @@ raises and exits non-zero; nothing is caught):
      (flanks, mids, label counts) on both devices, equal to the planted
      known answer.  At 5 x 4 Mb one warm-up and 3 timed runs, with every
      launch counter reset just before and each kernel of the path required
-     to have launched.
+     to have launched;
+  7. merge kernel vs its plain version (the sort of both runs), exact, with
+     median CUDA-event times of both: the two sorted halves of the A/B data
+     (2 x 20M rows x 2 words), the spacer table of genomes 0-2 and of
+     genomes 3-4 sorted apart, the amplicon table (7 words) split the same
+     way, a heavy-tie and sentinel table (3 words) split unevenly, and runs
+     of 0 and 1 rows;
+  8. the A/B entry point ``krisp_tpu_torch.tools.ab_merge_path.run`` at
+     its default 2 x 20M keys, 5 reps, with the merge's launch counter
+     reset just before: arm B must equal arm A bit for bit;
+  9. the out-of-core path through the CLI at 5 x 1 Mb on the spacer,
+     amplicon and IUPAC genomes of phases 4-6, with 100 kb chunks and
+     passes of 200,000 rows: the staged CUDA, staged CPU and fused CUDA
+     runs write equal, non-empty bytes, and the unfiltered staged groups
+     equal the planted answer;
+ 10. the out-of-core path at full size, 5 x 40 Mb spacer 25/1/2 (16 Mb
+     chunks, the default 2 GiB passes), all through the CLI with equal CSV
+     bytes: fused (budget raised; one warm-up, 2 timed runs), staged as the
+     default budget routes it (1 run, no temporary table directory left),
+     ``--workdir`` cold (1 run) and warm (2 runs); the window-key, sort and
+     scan kernels must have launched in the staged runs.
 Then a ``details`` line with every measurement as JSON, one JSON line of
 per-kernel results, the ``nvidia-smi`` name/power line, and, last,
 ``{"ok": true, "device": {...}}``.
@@ -48,6 +68,9 @@ per-kernel results, the ``nvidia-smi`` name/power line, and, last,
 from __future__ import annotations
 
 import json
+import os
+import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,8 +84,9 @@ N_FILES = 5
 SPACER = (25, 1, 2)
 AMPLICON = (30, 40, 30)
 SEED = 7
-SMALL, LARGE = 1_000_000, 4_000_000
+SMALL, LARGE, FULL = 1_000_000, 4_000_000, 40_000_000
 IUPAC_EVERY = 100_000
+AB_N = 20_000_000
 
 
 def check(cond, msg):
@@ -143,11 +167,22 @@ def synth_genomes(tmpdir: Path, size: int, geom, iupac: bool = False):
 
 def kernel_wrappers():
     """The kernel wrappers by name; each counts its launches."""
+    from krisp_tpu_torch.ops.merge import merge_sorted_words
     from krisp_tpu_torch.ops.pack import window_keys_both
     from krisp_tpu_torch.ops.scan import survivor_scan
     from krisp_tpu_torch.ops.sort import sort_words
     return {"window_keys_both": window_keys_both, "sort_words": sort_words,
-            "survivor_scan": survivor_scan}
+            "survivor_scan": survivor_scan,
+            "merge_sorted_words": merge_sorted_words}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def phase_env():
@@ -171,10 +206,14 @@ def phase_build():
     sources = sorted(p.name for p in build.SRC_DIR.glob("*.cu"))
     print(f"phase 1 build: {dt:.2f} s ({build.build().name}, {sources})",
           flush=True)
-    check(len(sources) == 3, f"expected three kernel sources: {sources}")
+    check(sources == ["merge_words.cu", "sort_words.cu", "survivor_scan.cu",
+                      "window_keys.cu"], f"expected four kernel sources: "
+          f"{sources}")
     check(lib.krisp_survivor_scan_block_rows() > 0
           and lib.krisp_sort_words_block_rows() > 0
-          and lib.krisp_window_keys_max_len() > 0, "kernel library broken")
+          and lib.krisp_window_keys_max_len() > 0
+          and lib.krisp_merge_words_max_words() == 64
+          and lib.krisp_merge_words_tile_rows(2) > 0, "kernel library broken")
     return dt
 
 
@@ -344,9 +383,10 @@ def _geom_flags(geom):
             str(geom[2]), "--diagnostic", str(geom[1])]
 
 
-def _cli(paths, geom, device, out_dir: Path, flags=()):
+def _cli(paths, geom, device, out_dir: Path, flags=(), name=None):
     from krisp_tpu_torch.cli.krisp_fasta import main
-    csv, align = out_dir / f"{device}.csv", out_dir / f"{device}.txt"
+    name = name or device
+    csv, align = out_dir / f"{name}.csv", out_dir / f"{name}.txt"
     rc = main([*paths[:2], "--outgroup", *paths[2:], *_geom_flags(geom),
                *flags, "--device", device, "--out_csv", str(csv),
                "--out_align", str(align)])
@@ -421,14 +461,13 @@ def phase_path(n, name, geom, dev, small, large, out_dir, variants, kernels):
     _cli(paths_l, geom, "cuda", out_dir, variants[0])          # warm-up
     METRICS.reset()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         _cli(paths_l, geom, "cuda", out_dir, variants[0])
         times.append(time.perf_counter() - t0)
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_keep = METRICS.stages["pull"].items // 3
     gather = METRICS.stages.get("gather")
@@ -450,6 +489,238 @@ def phase_path(n, name, geom, dev, small, large, out_dir, variants, kernels):
                 peak_bytes=peak, stages_s=stages, launches=launches)
 
 
+def _check_merge(name, a, b, timed=True):
+    """The merge kernel vs its plain version on two sorted runs."""
+    from krisp_tpu_torch.ops.merge import (merge_sorted_words,
+                                           merge_sorted_words_reference)
+    got = merge_sorted_words(a, b)
+    want = merge_sorted_words_reference(a, b)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    check(err == 0 and torch.equal(got, want),
+          f"merge kernel differs from its plain version on {name}")
+    del got, want
+    ms = plain_ms = None
+    if timed:
+        ms = cuda_ms(lambda: merge_sorted_words(a, b))
+        plain_ms = cuda_ms(lambda: merge_sorted_words_reference(a, b))
+    V = a.shape[0]
+    print(f"phase 7 merge_sorted_words {name}: {a.shape[1]} + {b.shape[1]} "
+          f"rows x {V} words, exact"
+          + (f", kernel {ms:.3f} ms, plain (sort of both) {plain_ms:.3f} ms"
+             if timed else ""), flush=True)
+    return dict(table=name, rows_a=a.shape[1], rows_b=b.shape[1], words=V,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _split_sorted(flat, cut):
+    from krisp_tpu_torch.ops.sort import sort_words
+    return sort_words(flat[:, :cut]), sort_words(flat[:, cut:])
+
+
+def phase_merge(dev, spacer, amplicon):
+    """The merge kernel on the A/B halves, on the spacer and amplicon
+    tables of genomes 0-2 and 3-4 sorted apart, on an uneven tie table and
+    on runs of 0 and 1 rows."""
+    from krisp_tpu_torch.convert import keys_from_numpy
+    from krisp_tpu_torch.tools.ab_merge_path import ab_keys
+
+    results = []
+    words = keys_from_numpy(ab_keys(AB_N), dev)
+    results.append(_check_merge("ab_halves", *_split_sorted(words, AB_N)))
+    del words
+    for name, paths, geom in (("spacer_path_genomes_012_34", spacer, SPACER),
+                              ("amplicon_path_genomes_012_34", amplicon,
+                               AMPLICON)):
+        _, flat = _key_table(paths, geom, dev)
+        cut = flat.shape[1] // N_FILES * 3      # genome tables are equal
+        runs = _split_sorted(flat, cut)
+        del flat
+        results.append(_check_merge(name, *runs))
+        del runs
+    ties = _tie_table(dev, 3, 10_000_019)
+    results.append(_check_merge("ties_sentinels_uneven",
+                                *_split_sorted(ties, 2_345_678)))
+    del ties
+    one = _tie_table(dev, 2, 1001)
+    for na, nb in ((0, 0), (0, 1), (1, 0), (1, 1), (0, 1000), (1, 1000),
+                   (1000, 1)):
+        a, b = _split_sorted(one[:, :na + nb], na)
+        results.append(_check_merge(f"runs_{na}_{nb}", a, b, timed=False))
+    return results
+
+
+def phase_ab(dev):
+    """The A/B entry point at the JAX tool's defaults; the merge's launches
+    counted over this run only."""
+    from krisp_tpu_torch.tools.ab_merge_path import run
+    reset_launches()
+    out = run(n=AB_N, reps=5, device=dev)
+    out["launches"] = launch_counts()["merge_sorted_words"]
+    print("phase 8 ab_merge_path " + json.dumps(out), flush=True)
+    check(out["bit_parity"] is True, "A/B: arm B differs from arm A")
+    check(out["launches"] > 0, "A/B: the merge kernel never launched")
+    return out
+
+
+def _set_env(**env):
+    """Set (or, for None, unset) environment variables; returns the old
+    values for ``_set_env(**old)``."""
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return old
+
+
+def phase_out_of_core_small(dev, genomes, td):
+    """Staged CUDA == staged CPU == fused CUDA bytes at 5 x 1 Mb with 100 kb
+    chunks and 200,000-row passes; unfiltered staged groups == planted."""
+    from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+
+    results = {}
+    old = _set_env(KRISP_TPU_CHUNK_BASES=100_000,
+                      KRISP_TPU_GLOBAL_ROWS=200_000)
+    for name, geom, flags in (("spacer", SPACER, ()),
+                              ("amplicon", AMPLICON, ()),
+                              ("iupac", SPACER, ("--dot-alignment",))):
+        (paths, planted), _ = genomes[name]
+        out_dir = td / f"ooc_{name}"
+        out_dir.mkdir()
+        outs, secs = {}, {}
+        for run_name, device, wd in (("staged_cuda", "cuda", "wd_cuda"),
+                                     ("staged_cpu", "cpu", "wd_cpu"),
+                                     ("fused_cuda", "cuda", None)):
+            METRICS.reset()
+            extra = ("--workdir", str(out_dir / wd)) if wd else ()
+            t0 = time.perf_counter()
+            outs[run_name] = _cli(paths, geom, device, out_dir,
+                                  (*flags, *extra), name=run_name)
+            secs[run_name] = time.perf_counter() - t0
+            if wd:
+                passes = METRICS.stages["global_pass"].calls
+        check(outs["staged_cuda"] == outs["staged_cpu"] == outs["fused_cuda"],
+              f"out-of-core {name}: staged CUDA, staged CPU and fused CUDA "
+              "bytes differ at 5 x 1 Mb")
+        csv_rows = outs["staged_cuda"][0].count(b"\n") - 1
+        check(csv_rows > 0 and len(outs["staged_cuda"][1]) > 0,
+              f"out-of-core {name}: no CSV row at 5 x 1 Mb")
+        groups = _groups_as_dict(run_pipeline(
+            paths[:2], paths[2:], KmerGeometry(*geom), ingroup_filter=False,
+            workdir=str(out_dir / "wd_unfiltered"), device=dev))
+        want = _planted_groups(planted, geom)
+        check(groups == want, f"out-of-core {name}: staged groups {groups} "
+              f"!= planted {want}")
+        check(passes >= 24, f"out-of-core {name}: only {passes} passes")
+        results[name] = dict(csv_rows=csv_rows, passes=passes, seconds=secs,
+                             planted_groups=len(want))
+        print(f"phase 9 out-of-core {name} 5 x 1 Mb: staged CUDA "
+              f"({secs['staged_cuda']:.2f} s) == staged CPU "
+              f"({secs['staged_cpu']:.2f} s) == fused CUDA "
+              f"({secs['fused_cuda']:.2f} s), {csv_rows} CSV rows, {passes} "
+              f"passes, {len(want)} planted groups found", flush=True)
+    _set_env(**old)
+    return results
+
+
+def _tables_dirs():
+    return set(Path(tempfile.gettempdir()).glob("krisp_tpu_tables_*"))
+
+
+def phase_out_of_core_full(dev, td):
+    """5 x 40 Mb spacer through the CLI: fused, staged as the budget routes
+    it, ``--workdir`` cold and warm; equal CSV bytes everywhere."""
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+
+    t0 = time.perf_counter()
+    paths, _ = synth_genomes(td / "spacer_40mb", FULL, SPACER)
+    synth_s = time.perf_counter() - t0
+    free = shutil.disk_usage(td).free
+    print(f"phase 10 out-of-core 5 x 40 Mb: genomes written in {synth_s:.1f} "
+          f"s, {free / 2**30:.1f} GiB free on disk", flush=True)
+    out_dir = td / "ooc_full"
+    out_dir.mkdir()
+    workdir = td / "ooc_full_tables"
+    n_keys = N_FILES * 2 * (FULL - sum(SPACER) + 1)
+    old = _set_env(KRISP_TPU_CHUNK_BASES=16 << 20,
+                      KRISP_TPU_GLOBAL_ROWS=None, KRISP_TPU_GLOBAL_BYTES=None)
+    runs = {}
+    csv_ref = None
+    staged_launches = dict.fromkeys(kernel_wrappers(), 0)
+
+    def timed(kind, n_runs, flags=(), budget=None, warmup=False):
+        nonlocal csv_ref
+        env = _set_env(KRISP_TPU_HBM_BUDGET=budget)
+        if warmup:
+            _cli(paths, SPACER, "cuda", out_dir, flags, name=kind)
+        METRICS.reset()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = _tables_dirs()
+        times = []
+        for _ in range(n_runs):
+            t = time.perf_counter()
+            csv, _ = _cli(paths, SPACER, "cuda", out_dir, flags, name=kind)
+            times.append(time.perf_counter() - t)
+            csv_ref = csv_ref if csv_ref is not None else csv
+            check(csv == csv_ref and csv.count(b"\n") > 1,
+                  f"out-of-core 5 x 40 Mb: {kind} CSV differs or is empty")
+        left = _tables_dirs() - before
+        _set_env(**env)
+        launches = launch_counts()
+        stages = {k: v.seconds / n_runs for k, v in METRICS.stages.items()}
+        gp = METRICS.stages.get("global_pass")
+        res = dict(times_s=times, kmers_per_s=n_keys / min(times),
+                   stages_s=stages, launches=launches,
+                   passes=gp.calls // n_runs if gp else None,
+                   global_rows=gp.items // n_runs if gp else None,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   tables_dirs_left=len(left))
+        if kind != "fused":
+            for k, v in launches.items():
+                staged_launches[k] += v
+        print(f"phase 10 out-of-core {kind}: runs "
+              f"{[round(t, 3) for t in times]} s, "
+              f"{res['kmers_per_s']:,.0f} k-mers/s (best), passes "
+              f"{res['passes']}, rows {res['global_rows']}, peak device "
+              f"memory {res['peak_bytes'] / 2**20:.1f} MiB, launches "
+              f"{launches}", flush=True)
+        print(f"phase 10 out-of-core {kind} stages (mean s per run): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()),
+              flush=True)
+        runs[kind] = res
+        return res
+
+    timed("fused", 2, budget=1 << 40, warmup=True)
+    routed = timed("staged_routed", 1)
+    check(routed["passes"] and routed["passes"] >= 2,
+          f"out-of-core: the default budget did not route 5 x 40 Mb staged "
+          f"in several passes ({routed['passes']})")
+    check(routed["tables_dirs_left"] == 0,
+          "out-of-core: a krisp_tpu_tables_* directory was left behind")
+    timed("workdir_cold", 1, ("--workdir", str(workdir)))
+    warm = timed("workdir_warm", 2, ("--workdir", str(workdir)))
+    check("extract+sort" not in warm["stages_s"],
+          "out-of-core: the warm run rebuilt a cached table")
+    check(all(staged_launches[k] > 0 for k in
+              ("window_keys_both", "sort_words", "survivor_scan")),
+          f"out-of-core: a kernel never launched in the staged runs: "
+          f"{staged_launches}")
+    cache_bytes = sum(f.stat().st_size for f in workdir.iterdir())
+    shutil.rmtree(workdir)
+    _set_env(**old)
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print(f"phase 10 out-of-core: cache {cache_bytes / 2**30:.2f} GiB, host "
+          f"peak RSS {host_peak / 2**30:.2f} GiB, staged launches "
+          f"{staged_launches}", flush=True)
+    return dict(runs=runs, n_keys=n_keys, synth_s=synth_s,
+                cache_bytes=cache_bytes, host_peak_rss_bytes=host_peak,
+                staged_launches=staged_launches, disk_free_bytes=free)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -457,6 +728,7 @@ def main():
         return 2
     import krisp_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = phase_env()
     build_s = phase_build()
@@ -476,20 +748,28 @@ def main():
         del scan_tables
         torch.cuda.empty_cache()
         paths = {}
+        all3 = ("window_keys_both", "sort_words", "survivor_scan")
         for n, name, geom, variants, kernels in (
-                (4, "spacer", SPACER, [()], list(kernel_wrappers())),
-                (5, "amplicon", AMPLICON, [(), ("--primer3",)],
-                 list(kernel_wrappers())),
+                (4, "spacer", SPACER, [()], all3),
+                (5, "amplicon", AMPLICON, [(), ("--primer3",)], all3),
                 (6, "iupac", SPACER, [("--dot-alignment",)],
                  ("sort_words", "survivor_scan"))):
             out_dir = td / f"out_{name}"
             out_dir.mkdir()
             paths[name] = phase_path(n, name, geom, dev, *genomes[name],
                                      out_dir, variants, kernels)
+        merge_res = phase_merge(dev, genomes["spacer"][1],
+                                genomes["amplicon"][1])
+        torch.cuda.empty_cache()
+        ab_res = phase_ab(dev)
+        torch.cuda.empty_cache()
+        ooc_small = phase_out_of_core_small(dev, genomes, td)
+        ooc_full = phase_out_of_core_full(dev, td)
 
     main_pack = pack_res[0]
     main_scan = scan_res[0]
     main_sort = sort_res[0]
+    main_merge = merge_res[0]
     main_launches = paths["spacer"]["launches"]
     kernels = [
         dict(name="window_keys_both", route="cuda",
@@ -510,11 +790,21 @@ def main():
              launches=main_launches["survivor_scan"],
              max_abs_err=max(r["max_abs_err"] for r in scan_res),
              ms=main_scan["ms"], plain_ms=main_scan["plain_ms"]),
+        dict(name="merge_sorted_words", route="cuda",
+             source="krisp_tpu_torch/csrc/merge_words.cu",
+             replaces="krisp_tpu/ops/pallas_merge.py:161",
+             launches=ab_res["launches"],
+             max_abs_err=max(r["max_abs_err"] for r in merge_res),
+             ms=main_merge["ms"], plain_ms=main_merge["plain_ms"]),
     ]
+    total_s = time.perf_counter() - t_start
     print("details " + json.dumps(dict(
         gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, window_keys=pack_res, sort_words=sort_res,
-        survivor_scan=scan_res, paths=paths)))
+        survivor_scan=scan_res, paths=paths, merge_sorted_words=merge_res,
+        ab_merge_path=ab_res, out_of_core_small=ooc_small,
+        out_of_core_full=ooc_full, total_s=total_s)))
+    print(f"chip_smoke: {total_s:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "krisp_sort_words": ([_I, _P, _P, _I, _LL, _P, _P, _P, _P, _P], _I),
     "krisp_sort_words_block_rows": ([], _I),
     "krisp_sort_words_max_words": ([], _I),
+    "krisp_merge_words": ([_I, _P, _P, _LL, _P, _LL, _I, _P, _P], _I),
+    "krisp_merge_words_max_words": ([], _I),
+    "krisp_merge_words_tile_rows": ([_I], _I),
     "krisp_error_string": ([_I], ctypes.c_char_p),
 }
 

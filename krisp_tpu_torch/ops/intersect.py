@@ -10,6 +10,10 @@ in all genomes) and compacts them.  Wide keys first pass the prefilter
 the rows whose flank prefix group spans all genomes, and the exact
 full-width stage runs on those rows only.
 
+The out-of-core path collapses each chunk's sorted keys with
+``dedup_sorted`` and runs ``global_intersect_bits`` per key range: the rows
+carry their multiplicities, which ``survivor_mark_weighted`` sums per run.
+
 PyTorch sizes outputs at run time, so compaction is one ``torch.nonzero``
 (one host sync, exact size).  The TPU's capped compaction, its padding and
 its overflow retries are not needed.
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..convert import i32
+from ..convert import i32, to_i32
 from ..metrics import GLOBAL as METRICS
 from .encode import KeyLayout, window_keys_bits
 from .pack import window_keys_both
@@ -46,20 +50,20 @@ def unpack_genomes(packed: torch.Tensor, vbits: torch.Tensor) -> torch.Tensor:
 
 def _all_window_keys(buffer: torch.Tensor, file_idx: int, left: int,
                      mid: int, right: int, bits: int, n_files: int,
-                     tables=None) -> torch.Tensor:
+                     tables=None, omit_soft: bool = False) -> torch.Tensor:
     """Window keys of one genome buffer (uint8[P]), forward then reverse
     strand: int32[W, 2 n_win] with genome id ``file_idx`` OR'd in and
     windows that are not all valid bases set to SENTINEL.
 
     2-bit keys come from the window-key kernel, whose validity is A/C/G/T
-    by arithmetic (the softmask policy is already in the buffer); other
-    widths from ``window_keys_bits`` with ``tables`` = (code, valid, comp)
-    per-byte tables."""
+    by arithmetic (not lower case under ``omit_soft``); other widths from
+    ``window_keys_bits`` with ``tables`` = (code, valid, comp) per-byte
+    tables, which carry the softmask policy."""
     layout = KeyLayout(left, mid, right, bits, n_files)
     fword, fshift = layout.file_word_shift()
     if bits == 2:
         ok, fwd, rc = window_keys_both(buffer, left, mid, right, bits,
-                                       n_files)
+                                       n_files, omit_soft)
         ok, words = torch.cat([ok, ok]), torch.cat([fwd, rc], dim=1)
     else:
         ok, words = window_keys_bits(buffer, *tables, left, mid, right, bits,
@@ -93,6 +97,27 @@ def extract_keys_ascii(buffer: torch.Tensor, file_idx: int, tables,
         raise ValueError("2-bit keys come from extract_keys_packed_in")
     return _all_window_keys(buffer, file_idx, left, mid, right, bits,
                             n_files, tables)
+
+
+def dedup_sorted(words: torch.Tensor, n_valid: int):
+    """Collapse the duplicate rows of a sorted table without compaction
+    (krisp_tpu's ``dedup_sorted``).
+
+    words: int32[W, n] sorted, its ``n_valid`` valid rows first.  Returns
+    (words int32[W, n], counts int32[n]): head rows keep their words and
+    get the run length, clipped at ``n_valid``, as count; duplicate and
+    invalid rows become SENTINEL rows with count 0.  The next head comes
+    from a gather at the run heads, not a reverse running minimum."""
+    n = words.shape[1]
+    counts = torch.zeros(n, dtype=torch.int32, device=words.device)
+    if n == 0:
+        return words, counts
+    head = _run_heads(words)
+    head[n_valid:] = False
+    heads = torch.nonzero(head).squeeze(1)
+    nxt = torch.cat([heads[1:], heads.new_full((1,), n_valid)])
+    counts[heads] = (nxt - heads).to(torch.int32)
+    return torch.where(head, words, SENTINEL), counts
 
 
 def compact_rows(arrays, keep: torch.Tensor):
@@ -192,6 +217,71 @@ def global_stage(table: list, layout: KeyLayout, n_files: int,
     with METRICS.stage("compact", device=dev):
         (words, counts, gid), _ = compact_rows([keys, counts, gid], keep)
     return words, counts, gid, n_pre
+
+
+def _run_sums(weights: torch.Tensor, runs: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """The sums of ``weights`` (int32 holding u32) over the runs that
+    start at ``rows`` and span ``runs[rows]`` rows, modulo 2**32 as int32
+    bit patterns: krisp_tpu's wrapping uint32 sum.  The int32 words summed
+    as signed values agree with the u32 sum modulo 2**32, and an int64
+    prefix sum of n < 2**31 of them cannot overflow; each run's tail is
+    read by a gather."""
+    s = torch.cumsum(weights, 0, dtype=torch.int64)
+    return to_i32(s[rows + runs[rows] - 1] - s[rows] + weights[rows])
+
+
+def _scan(keys: torch.Tensor, layout: KeyLayout, n_files: int):
+    return survivor_scan(keys, valid_rows(keys, layout), layout.flank_bits,
+                         layout.file_off + layout.file_bits, n_files)
+
+
+def survivor_mark_weighted(keys: torch.Tensor, layout: KeyLayout,
+                           n_files: int, weights: torch.Tensor):
+    """krisp_tpu's ``survivor_mark_bits(..., weights=)`` over sorted keys
+    int32[W, n] whose rows carry pre-collapsed counts ``weights`` (int32
+    holding u32).
+
+    ``keep`` and ``gid`` do not depend on the weights: the survivor-scan
+    kernel gives them, and its run lengths at valid head rows, over which
+    ``_run_sums`` sums the weights.  Returns (keep bool[n], counts int32[n]
+    (u32 bit patterns, 0 off valid heads), gid int32[n])."""
+    keep, runs, gid = _scan(keys, layout, n_files)
+    heads = torch.nonzero(runs).squeeze(1)
+    counts = torch.zeros_like(runs)
+    counts[heads] = _run_sums(weights, runs, heads)
+    return keep, counts, gid
+
+
+def global_intersect_bits(words: torch.Tensor, counts: torch.Tensor,
+                          layout: KeyLayout, n_files: int):
+    """krisp_tpu's ``global_intersect_bits``, the global stage of the
+    out-of-core path: sort, weighted survivor marking, exact compaction.
+
+    words: int32[W, n] KeyLayout rows (genome id OR'd in; sentinel rows
+    all-ones); counts: int32[n] (u32 multiplicities, 0 on sentinel rows).
+    Returns (words int32[W, n_keep], counts int32[n_keep], gid
+    int32[n_keep]): krisp_tpu's outputs up to ``n_keep`` (its ``cap`` and
+    overflow retry are not needed)."""
+    return global_intersect_rows([torch.cat([words, counts[None]])], layout,
+                                 n_files)
+
+
+def global_intersect_rows(table: list, layout: KeyLayout, n_files: int):
+    """``global_intersect_bits`` over one int32[W + 1, n] table whose last
+    row holds the counts: the counts sort as a trailing word, as
+    ``sort_rows(.., order_free_payloads=True)`` sorts them, in one sort
+    kernel call with V = W + 1.  ``table`` is a one-element list that the
+    stage empties, so the table is freed once it is sorted.  The weighted
+    counts are summed at the kept rows only: nearly every row of a
+    deduplicated table heads its run, and a count for each would cost
+    tens of bytes a row of device memory."""
+    W = layout.n_words
+    rows = sort_words(table.pop())
+    keys, cnt_s = rows[:W], rows[W]
+    keep, runs, gid = _scan(keys, layout, n_files)
+    kept = torch.nonzero(keep).squeeze(1)
+    return keys[:, kept], _run_sums(cnt_s, runs, kept), gid[kept]
 
 
 def fused_prefilter_global(keys, left: int, mid: int, right: int, bits: int,

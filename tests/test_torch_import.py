@@ -23,7 +23,11 @@ def test_port_imports_without_jax():
             "import krisp_tpu_torch.ops.intersect, krisp_tpu_torch.convert\n"
             "from krisp_tpu_torch.ops.sort import sort_words, sort_rows\n"
             "from krisp_tpu_torch.ops.intersect import ("
-            "global_stage, fused_prefilter_global, extract_keys_ascii)\n"
+            "global_stage, fused_prefilter_global, extract_keys_ascii,"
+            " global_intersect_bits, dedup_sorted)\n"
+            "import krisp_tpu_torch.ops.merge\n"
+            "import krisp_tpu_torch.engine.bigscale\n"
+            "import krisp_tpu_torch.tools.ab_merge_path\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'triton' not in sys.modules\n"
             "from krisp_tpu_torch.kernels import build\n"

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from krisp_tpu_torch.ops import pack, scan, sort
+from krisp_tpu_torch.ops import merge, pack, scan, sort
 from krisp_tpu_torch.ops.encode import KeyLayout
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +119,79 @@ def test_survivor_scan_kernel_takes_small_tables(dev, n):
     assert scan.survivor_scan.launches == before + (n > 0)
     for g, r in zip(got, want):
         assert g.shape == (n,) and g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("V", [1, 2, 3, 7, 9])
+@pytest.mark.parametrize("na,nb", [(0, 0), (0, 1), (1, 0), (1, 1), (0, 5000),
+                                   (4097, 0), (2047, 2049), (1, 300_001),
+                                   (1_000_003, 333_331)])
+@pytest.mark.parametrize("dist", ["random", "ties", "sentinels"])
+def test_merge_kernel_matches_plain(dev, V, na, nb, dist):
+    """Empty and one-row runs, tiles that split runs unevenly, heavy ties
+    across the runs and all-ones rows."""
+    rng = np.random.default_rng(V * 1000 + na + nb)
+    runs = []
+    for n in (na, nb):
+        w = torch.from_numpy(_sort_input(dist, V, n, rng).view(np.int32))
+        runs.append(sort.sort_words_reference(w.to(dev)))
+    before = merge.merge_sorted_words.launches
+    got = merge.merge_sorted_words(*runs)
+    want = merge.merge_sorted_words_reference(*runs)
+    torch.cuda.synchronize()
+    assert merge.merge_sorted_words.launches == before + (na + nb > 0)
+    assert got.dtype == torch.int32 and got.shape == (V, na + nb)
+    assert torch.equal(got, want)
+
+
+def test_merge_kernel_takes_every_width(dev):
+    """1 to 64 words: the tile shrinks with the width."""
+    rng = np.random.default_rng(64)
+    for V in (12, 13, 24, 25, 48, 49, 64):
+        a, b = (sort.sort_words_reference(torch.from_numpy(
+            _sort_input("ties", V, n, rng).view(np.int32)).to(dev))
+            for n in (5003, 7919))
+        got = merge.merge_sorted_words(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, merge.merge_sorted_words_reference(a, b)), V
+
+
+def _write_genomes(tmp_path, geom, n_files, size, seed):
+    rng = np.random.default_rng(seed)
+    L = sum(geom)
+    shared = ["".join(rng.choice(list("ACGT"), size=L)) for _ in range(3)]
+    paths = []
+    for f in range(n_files):
+        seq = list("".join(rng.choice(list("ACGTNacgt"), size=size,
+                                      p=[0.22] * 4 + [0.024] * 5)))
+        for i, p in enumerate(shared):
+            pos = (i + 1) * size // 4
+            seq[pos:pos + L] = p
+        path = tmp_path / f"g{f}.fasta"
+        path.write_text(f">g{f}\n" + "".join(seq) + "\n")
+        paths.append(str(path))
+    return paths
+
+
+@pytest.mark.parametrize("geom", [(25, 1, 2), (30, 40, 30), (4, 1, 3)])
+def test_staged_path_cuda_matches_cpu(dev, tmp_path, monkeypatch, geom):
+    """The out-of-core path with tiny chunks and passes: equal groups on
+    the card and on the CPU, and the kernels launched."""
+    from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
+    monkeypatch.setenv("KRISP_TPU_CHUNK_BASES", "1500")
+    monkeypatch.setenv("KRISP_TPU_GLOBAL_ROWS", "2000")
+    paths = _write_genomes(tmp_path, geom, 4, 6000, sum(geom))
+    got = {}
+    for d in (dev, "cpu"):
+        before = (sort.sort_words.launches, scan.survivor_scan.launches,
+                  pack.window_keys_both.launches)
+        groups = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom),
+                              ingroup_filter=False,
+                              workdir=str(tmp_path / f"wd_{d}"), device=d)
+        after = (sort.sort_words.launches, scan.survivor_scan.launches,
+                 pack.window_keys_both.launches)
+        if d != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+        got[str(d)] = [(g.left, g.right, [(a.mid, a.label_counts)
+                                          for a in g.amplicons])
+                       for g in groups]
+    assert got[str(dev)] == got["cpu"] and len(got["cpu"]) >= 3

@@ -134,11 +134,19 @@ def test_cli_wide_and_iupac_match_jax(tmp_path, monkeypatch, case):
 
 
 def test_unported_branches_raise(tmp_path):
+    """``workdir`` runs the staged path (its output equals krisp_tpu's);
+    several devices and ``--profile-dir`` still raise."""
     geom = TP.KmerGeometry(4, 1, 3)
     paths = _genomes(tmp_path, 3, (4, 1, 3))
-    with pytest.raises(NotImplementedError, match="workdir"):
-        TP.run_pipeline(paths[:1], paths[1:], geom, workdir=str(tmp_path),
-                        device="cpu")
+    got = TP.run_pipeline(paths[:1], paths[1:], geom, ingroup_filter=False,
+                          workdir=str(tmp_path / "wd"), device="cpu")
+    want = JP.run_pipeline(paths[:1], paths[1:], JP.KmerGeometry(4, 1, 3),
+                           ingroup_filter=False)
+    def snap(groups):
+        return [(g.left, g.right, [(a.mid, a.label_counts)
+                                   for a in g.amplicons]) for g in groups]
+    assert len(want) > 0 and snap(got) == snap(want)
+    assert len(list((tmp_path / "wd").glob("kmer_table_*.npz"))) == N_FILES
     with pytest.raises(NotImplementedError, match="device"):
         TP.run_pipeline(paths[:1], paths[1:], geom, n_devices=2,
                         device="cpu")
