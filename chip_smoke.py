@@ -7,13 +7,21 @@ raises and exits non-zero; nothing is caught):
 
   0. environment: torch / CUDA / nvcc versions, the card's name and power
      limit;
-  1. build the three CUDA kernels from ``krisp_tpu_torch/csrc``, one nvcc
+  1. build the four CUDA kernels from ``krisp_tpu_torch/csrc``, one nvcc
      per source in parallel (build seconds);
-  2. window-key kernel vs its plain PyTorch version on a 4 Mb buffer with
+  2. window-key kernel vs its plain PyTorch versions on a 4 Mb buffer with
      N and lower-case runs, at 25/1/2, 4/1/3, 10/4/10 and 30/40/30,
-     omit_soft off and on: exact; median of 5 CUDA-event timings of each;
+     omit_soft off and on, in both modes: (ok, fwd, rc) as the TPU kernel
+     gives them, and the per-genome table (both strands, genome id,
+     sentinel rows) written into a column slice of a wider table, as the
+     pipeline writes it: exact; each call timed as every phase times
+     one: ``ms`` the median CUDA-event time of a call (host gaps
+     included), and for a kernel also ``busy_ms``, the card's busy time
+     per call (from a profiler trace of 5 calls);
   3. sort kernel vs its plain version (``lsd_sort``, ``torch.sort``
-     passes) on four tables, exact, with median CUDA-event times of both:
+     passes) on four tables, exact, timed as in phase 2, and, for keys of
+     up to 2 words, one ``torch.sort`` of the fused int64 key (the library
+     call for the same function, never called by the port):
      the spacer path's global table (40.6M rows x 2 words), the IUPAC
      path's rows after the prefilter (about 40M x 4, built by the
      pipeline's own stages), the 30/40/30 table the direct path would sort
@@ -61,8 +69,10 @@ raises and exits non-zero; nothing is caught):
      ``--workdir`` cold (1 run) and warm (2 runs); the window-key, sort and
      scan kernels must have launched in the staged runs.
 Then a ``details`` line with every measurement as JSON, one JSON line of
-per-kernel results, the ``nvidia-smi`` name/power line, and, last,
-``{"ok": true, "device": {...}}``.
+per-kernel results (each with its least time ``bound_ms``: the bytes its
+inputs and outputs hold once, over the card's 3.35 TB/s), the
+``nvidia-smi`` name/power line, and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +97,12 @@ SEED = 7
 SMALL, LARGE, FULL = 1_000_000, 4_000_000, 40_000_000
 IUPAC_EVERY = 100_000
 AB_N = 20_000_000
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
+
+
+def bound_ms(n_bytes):
+    """The least time for moving ``n_bytes`` at the card's peak rate."""
+    return n_bytes / PEAK_BYTES_PER_S * 1e3
 
 
 def check(cond, msg):
@@ -107,6 +123,29 @@ def cuda_ms(fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def busy_ms(fn, reps=5):
+    """The card's busy time of one call of ``fn`` in ms (kernels, memsets
+    and copies, host gaps left out) from a profiler trace of ``reps``
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    check(busy_us > 0, "the profiler saw no device time")
+    return busy_us / reps / 1e3
+
+
+def timed(fn, reps=5):
+    """(ms, busy ms) of one call of ``fn``: ``cuda_ms`` and ``busy_ms``."""
+    return cuda_ms(fn, reps), busy_ms(fn, reps)
 
 
 def max_abs_err(got, want, rows=None):
@@ -166,12 +205,14 @@ def synth_genomes(tmpdir: Path, size: int, geom, iupac: bool = False):
 
 
 def kernel_wrappers():
-    """The kernel wrappers by name; each counts its launches."""
+    """The kernel wrappers by name; each counts its launches.  The
+    window-key kernel has two: its TPU mode and its table mode."""
     from krisp_tpu_torch.ops.merge import merge_sorted_words
-    from krisp_tpu_torch.ops.pack import window_keys_both
+    from krisp_tpu_torch.ops.pack import window_keys_both, window_keys_table
     from krisp_tpu_torch.ops.scan import survivor_scan
     from krisp_tpu_torch.ops.sort import sort_words
-    return {"window_keys_both": window_keys_both, "sort_words": sort_words,
+    return {"window_keys_both": window_keys_both,
+            "window_keys_table": window_keys_table, "sort_words": sort_words,
             "survivor_scan": survivor_scan,
             "merge_sorted_words": merge_sorted_words}
 
@@ -182,7 +223,12 @@ def reset_launches():
 
 
 def launch_counts():
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Launches per kernel (the window-key kernel's two modes together)."""
+    w = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in w.items()
+              if k != "window_keys_table"}
+    counts["window_keys_both"] += w["window_keys_table"].launches
+    return counts
 
 
 def phase_env():
@@ -218,8 +264,11 @@ def phase_build():
 
 
 def phase_window_keys(dev, n_bytes):
+    from krisp_tpu_torch.ops.encode import KeyLayout
     from krisp_tpu_torch.ops.pack import (window_keys_both,
-                                          window_keys_both_reference)
+                                          window_keys_both_reference,
+                                          window_keys_table,
+                                          window_keys_table_reference)
     rng = np.random.default_rng(SEED)
     buf = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n_bytes)
     for start in rng.integers(0, n_bytes - 2000, 400):   # soft-masked runs
@@ -240,14 +289,42 @@ def phase_window_keys(dev, n_bytes):
             err = max_abs_err(got[1:], want[1:], rows=ok)
             check(err == 0, f"window words differ at {geom} omit={omit}")
             check(bool(ok.any()), f"no valid window at {geom} omit={omit}")
-            ms = cuda_ms(lambda: window_keys_both(*args))
+            ms, busy = timed(lambda: window_keys_both(*args))
             plain_ms = cuda_ms(lambda: window_keys_both_reference(*args))
-            results.append(dict(geom=list(geom), omit_soft=omit,
-                                n_win=int(ok.numel()),
-                                valid=int(ok.sum()), max_abs_err=err,
-                                ms=ms, plain_ms=plain_ms))
+            # table mode into a column slice of a wider table (genome 2 of
+            # N_FILES), as the pipeline's fused table takes it
+            n_win, W = int(ok.numel()), got[1].shape[0]
+            targs = (b, 2, *geom, N_FILES, omit)
+            wide = torch.full((W, N_FILES * 2 * n_win), 7, dtype=torch.int32,
+                              device=dev)
+            cols = slice(2 * 2 * n_win, 3 * 2 * n_win)
+            window_keys_table(*targs, out=wide[:, cols])
+            want_t = window_keys_table_reference(*targs)
+            torch.cuda.synchronize()
+            err_t = max_abs_err([wide[:, cols]], [want_t])
+            check(err_t == 0 and int((wide == 7).sum()) ==
+                  W * (N_FILES - 1) * 2 * n_win,
+                  f"window table mode differs at {geom} omit={omit}")
+            del want_t
+            table_ms, table_busy = timed(
+                lambda: window_keys_table(*targs, out=wide[:, cols]))
+            table_plain_ms = cuda_ms(
+                lambda: window_keys_table_reference(*targs))
+            del wide
+            assert W == KeyLayout(*geom, 2, N_FILES).n_words
+            results.append(dict(
+                geom=list(geom), omit_soft=omit, n_win=n_win,
+                valid=int(ok.sum()), max_abs_err=max(err, err_t), ms=ms,
+                busy_ms=busy, plain_ms=plain_ms,
+                bound_ms=bound_ms(n_bytes + n_win * (1 + 8 * W)),
+                table_ms=table_ms, table_busy_ms=table_busy,
+                table_plain_ms=table_plain_ms,
+                table_bound_ms=bound_ms(n_bytes + n_win * 8 * W)))
             print(f"phase 2 window_keys {geom} omit_soft={omit}: exact, "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"kernel {ms:.4f} ms ({busy:.4f} busy), plain "
+                  f"{plain_ms:.3f} ms; table mode kernel {table_ms:.4f} ms "
+                  f"({table_busy:.4f} busy), plain {table_plain_ms:.3f} "
+                  "ms; "
                   f"{int(ok.sum())}/{ok.numel()} valid windows", flush=True)
     return results
 
@@ -289,6 +366,40 @@ def _long_run_table(dev, n):
             torch.from_numpy(valid).to(dev))
 
 
+def _fused_key(table):
+    """Keys of up to 2 words as one int64 whose signed order is the rows'
+    unsigned order (``ops/sort.py:_group64``'s digit)."""
+    bias = -(1 << 31)
+    if table.shape[0] == 1:
+        return table[0] ^ bias
+    return (((table[0] ^ bias).to(torch.int64) << 32)
+            | (table[1].to(torch.int64) & 0xFFFFFFFF))
+
+
+def _or_rows(x):
+    """Per word, the OR over the rows of int32[V, n], folded on the card."""
+    if x.shape[1] == 0:
+        return [0] * x.shape[0]
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        y = x[:, :h] | x[:, h:2 * h]
+        if x.shape[1] % 2:
+            y[:, 0] |= x[:, -1]
+        x = y
+    return [int(v) & 0xFFFFFFFF for v in x[:, 0].tolist()]
+
+
+def _sort_passes(table):
+    """The sort kernel's passes on ``table``: its plan from a torch fold of
+    the rows that are not all ones (what the kernel's vary_kernel folds)."""
+    from krisp_tpu_torch.ops.sort import sort_pass_plan, varying_masks
+    sent = (table == -1).all(dim=0)
+    rest = table[:, ~sent]
+    flags = int(bool(sent.any())) | 2 * int(rest.shape[1] > 0)
+    return len(sort_pass_plan(varying_masks(_or_rows(rest), _or_rows(~rest),
+                                            flags)))
+
+
 def _check_sort(name, table):
     from krisp_tpu_torch.ops.sort import sort_words, sort_words_reference
     got = sort_words(table)
@@ -298,14 +409,24 @@ def _check_sort(name, table):
     check(err == 0 and torch.equal(got, want),
           f"sort kernel differs from its plain version on {name}")
     del got, want
-    ms = cuda_ms(lambda: sort_words(table))
+    ms, busy = timed(lambda: sort_words(table))
     plain_ms = cuda_ms(lambda: sort_words_reference(table))
     V, n = table.shape
+    library_ms = None
+    if V <= 2:
+        key = _fused_key(table)
+        library_ms = cuda_ms(lambda: torch.sort(key))
+        del key
+    passes = _sort_passes(table)
     print(f"phase 3 sort_words {name}: {n} rows x {V} words, exact, "
-          f"kernel {ms:.3f} ms, plain (torch.sort) {plain_ms:.3f} ms",
+          f"{passes} passes, kernel {ms:.3f} ms ({busy:.3f} busy), "
+          "plain (torch.sort passes) "
+          f"{plain_ms:.3f} ms, one torch.sort of the fused key "
+          f"{library_ms if library_ms is None else f'{library_ms:.3f}'} ms",
           flush=True)
-    return dict(table=name, rows=n, words=V, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+    return dict(table=name, rows=n, words=V, passes=passes,
+                max_abs_err=err, ms=ms, busy_ms=busy, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms(8 * V * n))
 
 
 def phase_sort(dev, spacer, amplicon, iupac):
@@ -364,12 +485,15 @@ def phase_scan(dev, scan_tables):
                   f"survivor scan {what} differs on {name}")
         n_keep = int(want[0].sum())
         check(n_keep > 0, f"no survivor in {name}")
-        ms = cuda_ms(lambda: survivor_scan(*args))
+        ms, busy = timed(lambda: survivor_scan(*args))
         plain_ms = cuda_ms(lambda: survivor_scan_reference(*args))
         W, n = w.shape
+        # in: W words and the valid byte a row; out: keep (1 byte), counts
+        # and gid (4 bytes each) a row
         results.append(dict(table=name, rows=n, words=W, n_keep=n_keep,
                             max_abs_err=max_abs_err(got, want), ms=ms,
-                            plain_ms=plain_ms))
+                            busy_ms=busy, plain_ms=plain_ms,
+                            bound_ms=bound_ms(n * (4 * W + 1 + 9))))
         print(f"phase 3 survivor_scan {name}: {n} rows x {W} words, exact, "
               f"{n_keep} survivors, kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms", flush=True)
@@ -489,7 +613,7 @@ def phase_path(n, name, geom, dev, small, large, out_dir, variants, kernels):
                 peak_bytes=peak, stages_s=stages, launches=launches)
 
 
-def _check_merge(name, a, b, timed=True):
+def _check_merge(name, a, b, time_it=True):
     """The merge kernel vs its plain version on two sorted runs."""
     from krisp_tpu_torch.ops.merge import (merge_sorted_words,
                                            merge_sorted_words_reference)
@@ -500,17 +624,19 @@ def _check_merge(name, a, b, timed=True):
     check(err == 0 and torch.equal(got, want),
           f"merge kernel differs from its plain version on {name}")
     del got, want
-    ms = plain_ms = None
-    if timed:
-        ms = cuda_ms(lambda: merge_sorted_words(a, b))
+    ms = busy = plain_ms = None
+    if time_it:
+        ms, busy = timed(lambda: merge_sorted_words(a, b))
         plain_ms = cuda_ms(lambda: merge_sorted_words_reference(a, b))
     V = a.shape[0]
+    n_bytes = 2 * 4 * V * (a.shape[1] + b.shape[1])   # both runs in, out
     print(f"phase 7 merge_sorted_words {name}: {a.shape[1]} + {b.shape[1]} "
           f"rows x {V} words, exact"
           + (f", kernel {ms:.3f} ms, plain (sort of both) {plain_ms:.3f} ms"
-             if timed else ""), flush=True)
+             if time_it else ""), flush=True)
     return dict(table=name, rows_a=a.shape[1], rows_b=b.shape[1], words=V,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, busy_ms=busy, plain_ms=plain_ms,
+                bound_ms=bound_ms(n_bytes))
 
 
 def _split_sorted(flat, cut):
@@ -546,7 +672,7 @@ def phase_merge(dev, spacer, amplicon):
     for na, nb in ((0, 0), (0, 1), (1, 0), (1, 1), (0, 1000), (1, 1000),
                    (1000, 1)):
         a, b = _split_sorted(one[:, :na + nb], na)
-        results.append(_check_merge(f"runs_{na}_{nb}", a, b, timed=False))
+        results.append(_check_merge(f"runs_{na}_{nb}", a, b, time_it=False))
     return results
 
 
@@ -649,9 +775,9 @@ def phase_out_of_core_full(dev, td):
                       KRISP_TPU_GLOBAL_ROWS=None, KRISP_TPU_GLOBAL_BYTES=None)
     runs = {}
     csv_ref = None
-    staged_launches = dict.fromkeys(kernel_wrappers(), 0)
+    staged_launches = dict.fromkeys(launch_counts(), 0)
 
-    def timed(kind, n_runs, flags=(), budget=None, warmup=False):
+    def run_kind(kind, n_runs, flags=(), budget=None, warmup=False):
         nonlocal csv_ref
         env = _set_env(KRISP_TPU_HBM_BUDGET=budget)
         if warmup:
@@ -694,15 +820,15 @@ def phase_out_of_core_full(dev, td):
         runs[kind] = res
         return res
 
-    timed("fused", 2, budget=1 << 40, warmup=True)
-    routed = timed("staged_routed", 1)
+    run_kind("fused", 2, budget=1 << 40, warmup=True)
+    routed = run_kind("staged_routed", 1)
     check(routed["passes"] and routed["passes"] >= 2,
           f"out-of-core: the default budget did not route 5 x 40 Mb staged "
           f"in several passes ({routed['passes']})")
     check(routed["tables_dirs_left"] == 0,
           "out-of-core: a krisp_tpu_tables_* directory was left behind")
-    timed("workdir_cold", 1, ("--workdir", str(workdir)))
-    warm = timed("workdir_warm", 2, ("--workdir", str(workdir)))
+    run_kind("workdir_cold", 1, ("--workdir", str(workdir)))
+    warm = run_kind("workdir_warm", 2, ("--workdir", str(workdir)))
     check("extract+sort" not in warm["stages_s"],
           "out-of-core: the warm run rebuilt a cached table")
     check(all(staged_launches[k] > 0 for k in
@@ -771,31 +897,43 @@ def main():
     main_sort = sort_res[0]
     main_merge = merge_res[0]
     main_launches = paths["spacer"]["launches"]
+    main_runs = len(paths["spacer"]["times_s"])
+
+    def row(name, source, replaces, launches, runs, results, main, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"krisp_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    launches_per_run=launches / runs,
+                    max_abs_err=max(r["max_abs_err"] for r in results),
+                    ms=main["ms"], busy_ms=main["busy_ms"],
+                    plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by="bytes",
+                    library_ms=main.get("library_ms"), **extra)
+
+    # the spacer path (phase 4) is the main path: its window keys come from
+    # the table mode, whose figures at 25/1/2 make the row; the TPU mode's
+    # (which only the tests and this smoke call) stand beside them
+    main_table = dict(ms=main_pack["table_ms"],
+                      busy_ms=main_pack["table_busy_ms"],
+                      plain_ms=main_pack["table_plain_ms"],
+                      bound_ms=main_pack["table_bound_ms"])
     kernels = [
-        dict(name="window_keys_both", route="cuda",
-             source="krisp_tpu_torch/csrc/window_keys.cu",
-             replaces="krisp_tpu/ops/pallas_pack.py:169",
-             launches=main_launches["window_keys_both"],
-             max_abs_err=max(r["max_abs_err"] for r in pack_res),
-             ms=main_pack["ms"], plain_ms=main_pack["plain_ms"]),
-        dict(name="sort_words", route="cuda",
-             source="krisp_tpu_torch/csrc/sort_words.cu",
-             replaces="krisp_tpu/ops/pallas_sort.py:173",
-             launches=main_launches["sort_words"],
-             max_abs_err=max(r["max_abs_err"] for r in sort_res),
-             ms=main_sort["ms"], plain_ms=main_sort["plain_ms"]),
-        dict(name="survivor_scan", route="cuda",
-             source="krisp_tpu_torch/csrc/survivor_scan.cu",
-             replaces="krisp_tpu/ops/pallas_scan.py:218",
-             launches=main_launches["survivor_scan"],
-             max_abs_err=max(r["max_abs_err"] for r in scan_res),
-             ms=main_scan["ms"], plain_ms=main_scan["plain_ms"]),
-        dict(name="merge_sorted_words", route="cuda",
-             source="krisp_tpu_torch/csrc/merge_words.cu",
-             replaces="krisp_tpu/ops/pallas_merge.py:161",
-             launches=ab_res["launches"],
-             max_abs_err=max(r["max_abs_err"] for r in merge_res),
-             ms=main_merge["ms"], plain_ms=main_merge["plain_ms"]),
+        row("window_keys_both", "window_keys.cu",
+            "krisp_tpu/ops/pallas_pack.py:169",
+            main_launches["window_keys_both"], main_runs, pack_res,
+            main_table, tpu_mode_ms=main_pack["ms"],
+            tpu_mode_busy_ms=main_pack["busy_ms"],
+            tpu_mode_plain_ms=main_pack["plain_ms"],
+            tpu_mode_bound_ms=main_pack["bound_ms"]),
+        row("sort_words", "sort_words.cu", "krisp_tpu/ops/pallas_sort.py:173",
+            main_launches["sort_words"], main_runs, sort_res, main_sort),
+        row("survivor_scan", "survivor_scan.cu",
+            "krisp_tpu/ops/pallas_scan.py:218",
+            main_launches["survivor_scan"], main_runs, scan_res, main_scan),
+        # no production path merges: its main path is the A/B entry point
+        row("merge_sorted_words", "merge_words.cu",
+            "krisp_tpu/ops/pallas_merge.py:161", ab_res["launches"], 1,
+            merge_res, main_merge),
     ]
     total_s = time.perf_counter() - t_start
     print("details " + json.dumps(dict(

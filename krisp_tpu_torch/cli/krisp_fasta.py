@@ -1,7 +1,8 @@
 """`krisp_fasta` on the PyTorch port.
 
-Takes krisp_tpu's flag surface (``krisp_tpu.cli.krisp_fasta.parse_args``)
-plus ``--device {cuda,cpu}`` (default cuda), and writes the same outputs
+Takes krisp_tpu's flag surface (``parse_args``, ``_open_out`` and
+``_design_job`` are copies of ``krisp_tpu/cli/krisp_fasta.py``'s) plus
+``--device {cuda,cpu}`` (default cuda), and writes the same outputs
 through the port's engine: spacer geometries (``--conserved-left 25
 --conserved-right 2 --diagnostic 1``), amplicons (``--conserved 30
 --amplicon 100``, wide keys through the prefix prefilter) and inputs with
@@ -12,11 +13,79 @@ IUPAC letters (4-bit keys).  Run it as
 from __future__ import annotations
 
 import argparse
+import gzip
 import sys
 import time
 
-from krisp_tpu.cli._pipe import pipe_safe
-from krisp_tpu.cli.krisp_fasta import _design_job, _open_out, parse_args
+from ._pipe import pipe_safe
+
+
+def parse_args(argv):
+    parser = argparse.ArgumentParser(
+        description="Find diagnostic alignments for a set of fasta files",
+        prog="krisp_fasta",
+        formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("files", nargs="+", type=str, metavar="PATH",
+                        help="Fasta file to read. .gz, .bz2")
+    parser.add_argument("--outgroup", nargs="*", type=str, default=[],
+                        metavar="PATH",
+                        help="Outgroup Fasta files. To be amplified, but not detected")
+    parser.add_argument("-c", "--conserved", type=int, metavar="INT",
+                        help="Length of conserved regions on ends of amplicon")
+    parser.add_argument("--conserved-left", type=int, metavar="INT",
+                        help="Length of conserved region on left of amplicon")
+    parser.add_argument("--conserved-right", type=int, metavar="INT",
+                        help="Length of conserved region on right of amplicon")
+    parser.add_argument("-d", "--diagnostic", type=int, metavar="INT",
+                        help="Diagnostic region length for amplicon")
+    parser.add_argument("-a", "--amplicon", type=int, metavar="INT",
+                        help="Total amplicon length")
+    parser.add_argument("--omit-soft", action="store_true",
+                        help="Omit softmasked nucleotides")
+    parser.add_argument("--cores", type=int, default=1, metavar="INT",
+                        help="Total number of processors to utilize. (default: %(default)s)")
+    parser.add_argument("--devices", type=int, default=None, metavar="INT",
+                        help="Number of accelerator devices to shard the"
+                             " intersection over (default: all available)")
+    parser.add_argument("--dot-alignment", action="store_true",
+                        help="Output as dot-based alignments")
+    parser.add_argument("-o", "--out_align", type=str, metavar="PATH",
+                        help="Write results as human-readable alignments to a file (gzip supported)")
+    parser.add_argument("-s", "--out_csv", type=str, metavar="PATH",
+                        help="Write results to as a CSV file (gzip supported). (default: stdout)")
+    parser.add_argument("-w", "--workdir", type=str, metavar="PATH",
+                        help="Work directory for per-genome k-mer table checkpoints (resume support)")
+    parser.add_argument("-p", "--primer3", action=argparse.BooleanOptionalAction,
+                        help="Score candidate regions with the primer design engine")
+    parser.add_argument("--tm", type=int, nargs=2, metavar="INT", default=[53, 68])
+    parser.add_argument("--gc", type=int, nargs=2, metavar="INT", default=[40, 70])
+    parser.add_argument("--amp_size", type=int, nargs=2, metavar="INT", default=[70, 150])
+    parser.add_argument("--primer_size", type=int, nargs=2, metavar="INT", default=[25, 35])
+    parser.add_argument("--max_sec_tm", type=int, default=40, metavar="INT")
+    parser.add_argument("--gc_clamp", type=int, default=1, metavar="INT")
+    parser.add_argument("--max_end_gc", type=int, default=4, metavar="INT")
+    parser.add_argument("--verbose", action="store_true",
+                        help="Print runtime information to sys.stderr")
+    parser.add_argument("--profile-dir", type=str, metavar="PATH",
+                        help="Capture a JAX profiler trace (xprof format) "
+                             "of the device pipeline into this directory")
+    return parser.parse_args(argv)
+
+
+def _design_job(task, p3_args):
+    """Pool worker: score one consensus template."""
+    from ..thermo.design import run_primer3
+    template, target_start, target_len = task
+    return run_primer3(template, target_start=target_start,
+                       target_len=target_len, **p3_args)
+
+
+def _open_out(path, default):
+    if path is None:
+        return default, False
+    if path.endswith(".gz"):
+        return gzip.open(path, "wt"), True
+    return open(path, "w"), True
 
 
 def _split_device(argv):
@@ -29,8 +98,7 @@ def _split_device(argv):
 
 @pipe_safe
 def main(argv=None):
-    from krisp_tpu.engine import render
-
+    from ..engine import render
     from ..engine.pipeline import run_pipeline, solve_geometry
     from ..metrics import GLOBAL as METRICS
 
@@ -74,7 +142,7 @@ def main(argv=None):
     out_align, close_align = _open_out(args.out_align, None)
 
     if args.primer3:
-        from krisp_tpu.thermo.design import design_primers_for_group
+        from ..thermo.design import design_primers_for_group
         with METRICS.stage("primer3", items=len(groups)):
             if args.cores > 1 and len(groups) > 1:
                 import multiprocessing as mp

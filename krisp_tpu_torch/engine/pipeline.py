@@ -19,14 +19,16 @@ device-memory budget (``KRISP_TPU_HBM_BUDGET``, read at call time, default
 
   per genome, chunks of ``KRISP_TPU_CHUNK_BASES`` window starts (default
   64 Mb): upload the bytes, window keys, sort, duplicate collapse, pull ->
-  sorted sub-runs cached on disk (``krisp_tpu``'s ``TableCache``, same key
-  and format) -> range-partitioned global stage (``engine.bigscale``) ->
-  the same decode.
+  sorted sub-runs cached on disk (``engine.checkpoint.TableCache``, a copy
+  of krisp_tpu's, same key and format) -> range-partitioned global stage
+  (``engine.bigscale``) -> the same decode.
 
 ``KmerGeometry``, ``solve_geometry``, ``detect_bits``,
 ``_pack_genomes_host``, ``_encoding_tables`` and ``_group_epilogue`` are
 copies of krisp_tpu's JAX-free helpers (pinned equal by
-tests/test_torch_encode.py).  Several devices raise
+tests/test_torch_encode.py); ``dna``, ``io``, ``engine.groups``,
+``engine.render``, ``engine.checkpoint`` and ``thermo`` are the port's own
+copies of krisp_tpu's host modules.  Several devices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
@@ -40,13 +42,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from krisp_tpu import dna
-from krisp_tpu.engine.checkpoint import TableCache
-from krisp_tpu.engine.groups import FlankGroup, KmerAmplicon
-from krisp_tpu.io.fasta import bucket_size, load_buffer, simple_name
-
+from .. import dna
 from ..convert import keys_from_numpy, keys_to_numpy
 from ..device import resolve_device
+from ..io.fasta import bucket_size, load_buffer, simple_name
 from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
 from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
@@ -54,6 +53,8 @@ from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
                              global_stage, valid_rows)
 from ..ops.sort import sort_words
 from .bigscale import partitioned_global_intersect
+from .checkpoint import TableCache
+from .groups import FlankGroup, KmerAmplicon
 
 
 @dataclass
@@ -158,16 +159,14 @@ def _fused_table(buffers, layout: KeyLayout, geom: KmerGeometry,
                 pk, vb = _pack_genomes_host(stacked[f:f + 1], omit_soft)
                 pk, vb = keys_from_numpy(pk, dev), torch.from_numpy(vb).to(dev)
             with METRICS.stage("extract", items=n_win, device=dev):
-                rows.copy_(extract_keys_packed_in(
-                    pk, vb, f, geom.left, geom.mid, geom.right, bits,
-                    n_files))
+                extract_keys_packed_in(pk, vb, f, geom.left, geom.mid,
+                                       geom.right, bits, n_files, out=rows)
         else:
             with METRICS.stage("upload", items=pad, device=dev):
                 buf = torch.from_numpy(stacked[f]).to(dev)
             with METRICS.stage("extract", items=n_win, device=dev):
-                rows.copy_(extract_keys_ascii(
-                    buf, f, tables, geom.left, geom.mid, geom.right, bits,
-                    n_files))
+                extract_keys_ascii(buf, f, tables, geom.left, geom.mid,
+                                   geom.right, bits, n_files, out=rows)
     return flat
 
 
@@ -255,7 +254,7 @@ def _genome_table_chunked(path, geom: KmerGeometry, bits: int,
 def _cached_parts(paths, geom: KmerGeometry, bits: int, omit_soft: bool,
                   workdir, layout: KeyLayout, chunk_size: int | None = None,
                   device="cuda"):
-    """Per-genome tables through krisp_tpu's ``TableCache`` in ``workdir``
+    """Per-genome tables through ``TableCache`` (krisp_tpu's) in ``workdir``
     (same key and format, so either package reads the other's cache): load
     hits, build and store misses.  ``chunk_size`` defaults to
     ``KRISP_TPU_CHUNK_BASES`` (64 Mb).

@@ -29,19 +29,26 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                   ctypes.c_longlong)
 #: C entry -> (argtypes, restype)
 _SIGNATURES = {
     "krisp_window_keys": ([_I, _P, _P, _LL, _I, _I, _P, _I, _I, _P, _P, _P],
                           _I),
+    "krisp_window_keys_table": ([_I, _P, _P, _LL, _I, _I, _P, _I, _I, _P, _LL,
+                                 _I, _U], _I),
     "krisp_window_keys_max_runs": ([], _I),
     "krisp_window_keys_max_len": ([], _I),
     "krisp_survivor_scan": ([_I, _P, _P, _I, _LL, _P, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P], _I),
     "krisp_survivor_scan_block_rows": ([], _I),
-    "krisp_sort_words": ([_I, _P, _P, _I, _LL, _P, _P, _P, _P, _P], _I),
+    "krisp_sort_words_vary": ([_I, _P, _P, _I, _LL, _P], _I),
+    "krisp_sort_words": ([_I, _P, _P, _I, _LL, _P, _I, _P, _P, _P, _P], _I),
     "krisp_sort_words_block_rows": ([], _I),
     "krisp_sort_words_max_words": ([], _I),
+    "krisp_sort_words_max_bits": ([], _I),
+    "krisp_sort_words_key_mode_words": ([], _I),
+    "krisp_sort_words_status_words": ([_LL], _LL),
     "krisp_merge_words": ([_I, _P, _P, _LL, _P, _LL, _I, _P, _P], _I),
     "krisp_merge_words_max_words": ([], _I),
     "krisp_merge_words_tile_rows": ([_I], _I),

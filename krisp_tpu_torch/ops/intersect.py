@@ -26,11 +26,9 @@ import torch
 from ..convert import i32, to_i32
 from ..metrics import GLOBAL as METRICS
 from .encode import KeyLayout, window_keys_bits
-from .pack import window_keys_both
+from .pack import SENTINEL, window_keys_table
 from .scan import _masked_head, _run_heads, survivor_scan
 from .sort import sort_with_rowid, sort_words
-
-SENTINEL = -1   # the all-ones u32 word as an int32 bit pattern
 
 
 def unpack_genomes(packed: torch.Tensor, vbits: torch.Tensor) -> torch.Tensor:
@@ -50,53 +48,63 @@ def unpack_genomes(packed: torch.Tensor, vbits: torch.Tensor) -> torch.Tensor:
 
 def _all_window_keys(buffer: torch.Tensor, file_idx: int, left: int,
                      mid: int, right: int, bits: int, n_files: int,
-                     tables=None, omit_soft: bool = False) -> torch.Tensor:
+                     tables=None, omit_soft: bool = False,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Window keys of one genome buffer (uint8[P]), forward then reverse
     strand: int32[W, 2 n_win] with genome id ``file_idx`` OR'd in and
-    windows that are not all valid bases set to SENTINEL.
+    windows that are not all valid bases set to SENTINEL; written into
+    ``out`` (an int32[W, 2 n_win] view) when given.
 
-    2-bit keys come from the window-key kernel, whose validity is A/C/G/T
-    by arithmetic (not lower case under ``omit_soft``); other widths from
-    ``window_keys_bits`` with ``tables`` = (code, valid, comp) per-byte
-    tables, which carry the softmask policy."""
+    2-bit keys come from the window-key kernel's table mode, whose
+    validity is A/C/G/T by arithmetic (not lower case under
+    ``omit_soft``), in one launch that writes ``out`` directly; other
+    widths from ``window_keys_bits`` with ``tables`` = (code, valid, comp)
+    per-byte tables, which carry the softmask policy."""
+    if bits == 2:
+        return window_keys_table(buffer, file_idx, left, mid, right,
+                                 n_files, omit_soft, out)
     layout = KeyLayout(left, mid, right, bits, n_files)
     fword, fshift = layout.file_word_shift()
-    if bits == 2:
-        ok, fwd, rc = window_keys_both(buffer, left, mid, right, bits,
-                                       n_files, omit_soft)
-        ok, words = torch.cat([ok, ok]), torch.cat([fwd, rc], dim=1)
-    else:
-        ok, words = window_keys_bits(buffer, *tables, left, mid, right, bits,
-                                     n_files)
-        words = torch.stack(words)
+    ok, words = window_keys_bits(buffer, *tables, left, mid, right, bits,
+                                 n_files)
+    words = torch.stack(words)
     words[fword] |= i32(file_idx << fshift)
-    return torch.where(ok, words, SENTINEL)
+    words = torch.where(ok, words, SENTINEL)
+    if out is None:
+        return words
+    out.copy_(words)
+    return out
 
 
 def extract_keys_packed_in(packed_row: torch.Tensor, vbits_row: torch.Tensor,
                            file_idx: int, left: int, mid: int, right: int,
-                           bits: int, n_files: int) -> torch.Tensor:
+                           bits: int, n_files: int,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
     """Sentinel-marked KeyLayout keys of ONE genome (both strands) with
     genome id ``file_idx`` OR'd in.
 
     packed_row / vbits_row: int32[1, nw] / uint8[1, nv], one genome of
-    ``engine.pipeline._pack_genomes_host``.  Returns int32[W, 2 n_win].
+    ``engine.pipeline._pack_genomes_host``.  Returns int32[W, 2 n_win],
+    written into ``out`` when given.
     """
     buffer = unpack_genomes(packed_row, vbits_row)[0]
-    return _all_window_keys(buffer, file_idx, left, mid, right, bits, n_files)
+    return _all_window_keys(buffer, file_idx, left, mid, right, bits, n_files,
+                            out=out)
 
 
 def extract_keys_ascii(buffer: torch.Tensor, file_idx: int, tables,
                        left: int, mid: int, right: int, bits: int,
-                       n_files: int) -> torch.Tensor:
+                       n_files: int,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """``extract_keys_packed_in`` for the 4-bit route: one genome's raw
     ASCII bytes (uint8[P]) and the (code, valid, comp) tables of
     ``engine.pipeline._encoding_tables``, which carry the softmask
-    policy.  Returns int32[W, 2 n_win]."""
+    policy.  Returns int32[W, 2 n_win], written into ``out`` when
+    given."""
     if bits == 2:
         raise ValueError("2-bit keys come from extract_keys_packed_in")
     return _all_window_keys(buffer, file_idx, left, mid, right, bits,
-                            n_files, tables)
+                            n_files, tables, out=out)
 
 
 def dedup_sorted(words: torch.Tensor, n_valid: int):

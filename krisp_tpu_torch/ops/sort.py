@@ -9,6 +9,9 @@ krisp_tpu's signature over it, for the differential tests.  The TPU's
 backend switch is not carried over: on the card the kernel *is*
 ``sort_rows``' backend.
 
+``varying_masks`` and ``sort_pass_plan`` are the kernel's plan of passes:
+which key bits each pass's digit takes, from what varies across the rows.
+
 ``lsd_sort`` is the plain version: adjacent words fuse into one int64 digit
 whose signed order equals the unsigned order of the word pair (the high
 word is biased by 2**31), so a 60-bit spacer key sorts in one
@@ -17,6 +20,8 @@ sorts.  It also serves ``sort_rows`` calls that carry ordered payloads.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -86,6 +91,77 @@ def sort_words_reference(stacked: torch.Tensor) -> torch.Tensor:
     return torch.stack(lsd_sort(list(stacked))[0])
 
 
+#: the widest digit a sort pass takes, in bits: the kernel's kMaxBits (512
+#: bins).  Wider digits save passes but cost more a pass on the H100 (see
+#: PERF.md)
+DIGIT_BITS = 9
+#: the widest rows whose passes carry the key words themselves (key mode);
+#: wider rows sort (word, row id) pairs word by word (index mode), as the
+#: kernel's krisp_sort_words_key_mode_words says
+KEY_MODE_WORDS = 3
+
+
+def varying_masks(ones, zeros, flags):
+    """Per word (word 0 most significant) the key bits that the passes
+    must cover, from the kernel's fold of the rows that are not all ones:
+    ``ones[v]`` and ``zeros[v]`` OR word v and its complement over those
+    rows, ``flags`` has bit 0 set if a row is all ones (a sentinel) and
+    bit 1 if a row is not.
+
+    The bits set in both vary across the non-sentinel rows.  Sentinels
+    add one bit, not all: the highest bit that is 0 in every other row.
+    A row's first bit (from the top) that differs from a sentinel is its
+    highest 0 bit, which is either a varying bit or that one, so passes
+    over these bits put every sentinel after every other row.  All rows
+    sentinels, or all equal: no bit."""
+    if not flags & 2:
+        return [0] * len(ones)
+    masks = [o & z for o, z in zip(ones, zeros)]
+    if flags & 1:
+        for v, o in enumerate(ones):
+            if o != 0xFFFFFFFF:
+                masks[v] |= 1 << ((~o & 0xFFFFFFFF).bit_length() - 1)
+                break
+    return masks
+
+
+def sort_pass_plan(masks):
+    """The passes of the sort kernel: [(lo, width)], least significant
+    first, each digit the key bits [lo, lo + width).
+
+    ``masks``: per word (word 0 most significant) the bits to cover
+    (``varying_masks``); bit b of the key is bit b % 32 of word
+    V - 1 - b // 32.  The digits cover every such bit: the fewest passes
+    that digits of ``DIGIT_BITS`` bits allow (a greedy cover from the
+    lowest bit is the least), each as narrow as that count of passes
+    allows (fewer bins), and each ending at the highest bit it covers.  No
+    bit: no pass.  Above ``KEY_MODE_WORDS`` words (the kernel's index
+    mode) each word is covered on its own, so that no digit spans two
+    words."""
+    V = len(masks)
+    if V > KEY_MODE_WORDS:
+        return [(lo + 32 * (V - 1 - v), width)
+                for v in reversed(range(V))
+                for lo, width in sort_pass_plan([masks[v]])]
+    key = 0
+    for m in masks:
+        key = key << 32 | (int(m) & 0xFFFFFFFF)
+
+    def cover(width):
+        plan, rest = [], key
+        while rest:
+            lo = (rest & -rest).bit_length() - 1
+            hi = (rest & (((1 << width) - 1) << lo)).bit_length()
+            plan.append((lo, hi - lo))
+            rest &= -1 << (lo + width)
+        return plan
+
+    n_passes = len(cover(DIGIT_BITS))
+    return next(p for w in range(-(-key.bit_count() // n_passes) if key
+                                 else 1, DIGIT_BITS + 1)
+                if len(p := cover(w)) == n_passes)
+
+
 def sort_words(stacked: torch.Tensor) -> torch.Tensor:
     """Rows of int32[V, n] (u32 bit patterns, word 0 most significant) in
     ascending unsigned lexicographic order; all-ones sentinel rows last.
@@ -110,19 +186,36 @@ def sort_words(stacked: torch.Tensor) -> torch.Tensor:
     if not 1 <= V <= lib.krisp_sort_words_max_words():
         raise ValueError(f"{V} words per row; the kernel takes 1 to "
                          f"{lib.krisp_sort_words_max_words()}")
+    if (lib.krisp_sort_words_key_mode_words() != KEY_MODE_WORDS
+            or lib.krisp_sort_words_max_bits() != DIGIT_BITS):
+        raise RuntimeError("the sort kernel's key-mode width or digit cap "
+                           "differs from KEY_MODE_WORDS or DIGIT_BITS")
     stacked = stacked.contiguous()
     dev = stacked.device
-    nb = -(-n // lib.krisp_sort_words_block_rows())
-    scratch = torch.empty(V * n if V <= 2 else 4 * n, dtype=torch.int32,
-                          device=dev)
-    hist = torch.empty(4 * V * 256, dtype=torch.int32, device=dev)
-    hist_host = torch.empty(4 * V * 256, dtype=torch.int32)
-    counts = torch.empty(256 * nb, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    acc = torch.empty(2 * V + 1, dtype=torch.int32, device=dev)
+    # buffers for any plan, allocated before the readback so that the
+    # card waits for no more host work after it than the plan itself
+    scratch = torch.empty(V * n if V <= KEY_MODE_WORDS else 6 * n,
+                          dtype=torch.int32, device=dev)
+    status = torch.empty(lib.krisp_sort_words_status_words(n),
+                         dtype=torch.int32, device=dev)
+    build.check(lib.krisp_sort_words_vary(dev.index, stream,
+                                          stacked.data_ptr(), V, n,
+                                          acc.data_ptr()), "sort_words")
+    # the call's one readback: the host queues one kernel per pass, and the
+    # number of passes (so also which buffer each pass writes, for the last
+    # to land in ``out``) follows from the bits that vary
+    acc = [a & 0xFFFFFFFF for a in acc.tolist()]
+    plan = sort_pass_plan(varying_masks(acc[:V], acc[V:2 * V], acc[2 * V]))
+    flat = [x for pass_ in plan for x in pass_]
+    hist = torch.empty(len(plan) << DIGIT_BITS, dtype=torch.int32,
+                       device=dev)
     build.check(lib.krisp_sort_words(
-        dev.index, stream, stacked.data_ptr(), V, n, out.data_ptr(),
-        scratch.data_ptr(), hist.data_ptr(), hist_host.data_ptr(),
-        counts.data_ptr()), "sort_words")
+        dev.index, stream, stacked.data_ptr(), V, n,
+        (ctypes.c_int * len(flat))(*flat), len(plan), out.data_ptr(),
+        scratch.data_ptr(), hist.data_ptr(), status.data_ptr()),
+        "sort_words")
     sort_words.launches += 1
     return out
 

@@ -19,15 +19,18 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _window_buffer(seed, size):
+    rng = np.random.default_rng(seed)
+    # rare N and lower case, so that L = 100 under omit_soft keeps windows
+    p = [0.245] * 4 + [0.004] * 5
+    return rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), size=size, p=p)
+
+
 @pytest.mark.parametrize("geom", [(25, 1, 2), (4, 1, 3), (10, 4, 10),
                                   (30, 40, 30)])
 @pytest.mark.parametrize("omit_soft", [False, True])
 def test_window_keys_kernel_matches_plain(dev, geom, omit_soft):
-    rng = np.random.default_rng(sum(geom))
-    # rare N and lower case, so that L = 100 under omit_soft keeps windows
-    p = [0.245] * 4 + [0.004] * 5
-    buf = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), size=300_001, p=p)
-    b = torch.from_numpy(buf).to(dev)
+    b = torch.from_numpy(_window_buffer(sum(geom), 300_001)).to(dev)
     before = pack.window_keys_both.launches
     ok_k, fwd_k, rc_k = pack.window_keys_both(b, *geom, 2, 5, omit_soft)
     ok_p, fwd_p, rc_p = pack.window_keys_both_reference(b, *geom, 2, 5,
@@ -38,6 +41,46 @@ def test_window_keys_kernel_matches_plain(dev, geom, omit_soft):
     assert bool(ok_p.any()) and not bool(ok_p.all())
     assert torch.equal(fwd_k[:, ok_p], fwd_p[:, ok_p])
     assert torch.equal(rc_k[:, ok_p], rc_p[:, ok_p])
+
+
+@pytest.mark.parametrize("geom", [(1, 0, 0), (25, 1, 2), (30, 40, 30),
+                                  (500, 24, 500)],
+                         ids=["L1", "L28", "L100", "L1024"])
+@pytest.mark.parametrize("n_win", [-3, 1, 15, 16, 17, 4095, 4096, 4097,
+                                   300_001])
+@pytest.mark.parametrize("omit_soft", [False, True])
+def test_window_keys_both_modes_match_plain(dev, geom, n_win, omit_soft):
+    """Both modes at L = 1 to 1024, P < L (n_win <= 0), and window counts
+    at the edges of a thread's 16-window stretch and a block's 4,096; the
+    table mode into a column slice of a wider table (row stride above
+    2 n_win), the slice's neighbours untouched."""
+    L = sum(geom)
+    P = n_win + L - 1 if n_win > 0 else max(L + n_win, 0)
+    buf = _window_buffer(L + n_win + 3, P)
+    buf[:min(L, P)] = np.frombuffer(b"ACGT" * 256, np.uint8)[:min(L, P)]
+    b = torch.from_numpy(buf).to(dev)
+    nw = max(P - L + 1, 0)
+    ok_k, fwd_k, rc_k = pack.window_keys_both(b, *geom, 2, 5, omit_soft)
+    ok_p, fwd_p, rc_p = pack.window_keys_both_reference(b, *geom, 2, 5,
+                                                        omit_soft)
+    W = fwd_p.shape[0]
+    wide = torch.full((W, 2 * nw + 5), 7, dtype=torch.int32, device=dev)
+    before = pack.window_keys_table.launches
+    view = wide[:, 2:2 + 2 * nw]
+    got = pack.window_keys_table(b, 3, *geom, 5, omit_soft, out=view)
+    want = pack.window_keys_table_reference(b, 3, *geom, 5, omit_soft)
+    torch.cuda.synchronize()
+    assert pack.window_keys_table.launches == before + 1
+    assert ok_k.shape == (nw,) and fwd_k.shape == (W, nw)
+    assert torch.equal(ok_k, ok_p)
+    assert torch.equal(fwd_k[:, ok_p], fwd_p[:, ok_p])
+    assert torch.equal(rc_k[:, ok_p], rc_p[:, ok_p])
+    assert got is view
+    assert torch.equal(got, want)
+    assert bool((wide[:, :2] == 7).all())
+    assert bool((wide[:, 2 + 2 * nw:] == 7).all())
+    if nw:
+        assert bool(ok_p[0])
 
 
 @pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 1_000_003])
@@ -73,8 +116,8 @@ def test_survivor_scan_kernel_matches_plain(dev, n, n_files, key):
 
 def _sort_input(dist, V, n, rng):
     """uint32[V, n] rows: random words, all rows equal, few distinct values
-    with top-bit words (heavy ties), or random rows with all-ones sentinel
-    rows mixed in."""
+    with top-bit words (heavy ties), random rows with all-ones sentinel
+    rows mixed in, or rows that differ in one bit only."""
     if dist == "random":
         return rng.integers(0, 2**32, (V, n), dtype=np.uint64).astype(
             np.uint32)
@@ -84,15 +127,21 @@ def _sort_input(dist, V, n, rng):
         pool = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
                          0xFFFFFFFF], np.uint32)
         return pool[rng.integers(0, pool.size, (V, n))]
+    if dist == "one_bit":
+        words = np.full((V, n), 0x12345678, np.uint32)
+        words[V // 2] |= (rng.random(n) < 0.5).astype(np.uint32) << 31
+        return words
     words = rng.integers(0, 2**32, (V, n), dtype=np.uint64).astype(np.uint32)
     words[:, rng.random(n) < 0.2] = 0xFFFFFFFF
     return words
 
 
-@pytest.mark.parametrize("V", [1, 2, 3, 4, 7, 13])
-@pytest.mark.parametrize("n", [0, 1, 2, 4095, 4096, 4097, 1_000_003])
-@pytest.mark.parametrize("dist", ["random", "equal", "ties", "sentinels"])
+@pytest.mark.parametrize("V", [1, 2, 3, 4, 7, 9, 64])
+@pytest.mark.parametrize("n", [0, 1, 2, 8191, 8192, 8193, 10_000_019])
+@pytest.mark.parametrize("dist", ["random", "equal", "ties", "sentinels",
+                                  "one_bit"])
 def test_sort_words_kernel_matches_plain(dev, V, n, dist):
+    """n at one row, a tile (8,192 rows) +- 1 and 10M + 19."""
     rng = np.random.default_rng(V * 7 + n)
     words = _sort_input(dist, V, n, rng)
     w = torch.from_numpy(words.view(np.int32)).to(dev)
@@ -104,6 +153,60 @@ def test_sort_words_kernel_matches_plain(dev, V, n, dist):
     assert got.dtype == torch.int32 and got.shape == (V, n)
     assert torch.equal(got, want)
     assert torch.equal(w.cpu(), torch.from_numpy(words.view(np.int32)))
+
+
+def _plan(words):
+    """The sort's plan for uint32[V, n], from a numpy fold of the rows as
+    the kernel's vary_kernel folds them."""
+    sent = (words == 0xFFFFFFFF).all(axis=0)
+    rest = words[:, ~sent]
+    fold = ([int(np.bitwise_or.reduce(r)) for r in rest],
+            [int(np.bitwise_or.reduce(~r)) for r in rest],
+            int(sent.any()) | 2 * int((~sent).any()))
+    return sort.sort_pass_plan(sort.varying_masks(*fold))
+
+
+@pytest.mark.parametrize("passes", range(1, 9))
+@pytest.mark.parametrize("sentinels", [False, True])
+def test_sort_words_kernel_plans_of_1_to_8_passes(dev, passes, sentinels):
+    """2-word rows whose varying bits fill ``passes`` digits of up to 9
+    bits, straddling the word boundary.  With sentinel rows one bit fewer
+    varies, and the sentinels' bit, the next one up, fills the last
+    digit."""
+    rng = np.random.default_rng(passes * 16 + sentinels)
+    n = 1_000_003
+    span = 9 * (passes - 1) + 1 - sentinels
+    lo = min(20, 64 - span - sentinels)   # key bits [lo, lo + span)
+    words = rng.integers(0, 2**32, (2, n), dtype=np.uint64).astype(np.uint32)
+    for k in range(2):
+        bits = [b for b in range(lo, lo + span)
+                if 32 * (1 - k) <= b < 32 * (2 - k)]
+        words[k] &= np.uint32(sum(1 << (b % 32) for b in bits))
+    if sentinels:
+        words[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    assert len(_plan(words)) == passes
+    w = torch.from_numpy(words.view(np.int32)).to(dev)
+    got = sort.sort_words(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort.sort_words_reference(w))
+
+
+@pytest.mark.parametrize("width", [1, 2, 5, 8, 9])
+@pytest.mark.parametrize("V", [2, 3, 4, 7])
+def test_sort_words_kernel_every_digit_width(dev, width, V):
+    """Digits of each width the plan can take, in key mode (V <= 3) and
+    index mode: every word varies in ``width`` bits, with sentinel rows
+    (their bit is a digit of 1 bit)."""
+    rng = np.random.default_rng(width * 10 + V)
+    words = rng.integers(0, 2**32, (V, 300_007), dtype=np.uint64).astype(
+        np.uint32) & np.uint32(((1 << width) - 1) << 3)
+    words[:, rng.random(words.shape[1]) < 0.2] = 0xFFFFFFFF
+    plan = _plan(words)
+    assert {w for _, w in plan} == {width, 1}
+    w = torch.from_numpy(words.view(np.int32)).to(dev)
+    got = sort.sort_words(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort.sort_words_reference(w))
 
 
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
@@ -183,12 +286,12 @@ def test_staged_path_cuda_matches_cpu(dev, tmp_path, monkeypatch, geom):
     got = {}
     for d in (dev, "cpu"):
         before = (sort.sort_words.launches, scan.survivor_scan.launches,
-                  pack.window_keys_both.launches)
+                  pack.window_keys_table.launches)
         groups = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom),
                               ingroup_filter=False,
                               workdir=str(tmp_path / f"wd_{d}"), device=d)
         after = (sort.sort_words.launches, scan.survivor_scan.launches,
-                 pack.window_keys_both.launches)
+                 pack.window_keys_table.launches)
         if d != "cpu":
             assert all(a > b for a, b in zip(after, before))
         got[str(d)] = [(g.left, g.right, [(a.mid, a.label_counts)
