@@ -26,11 +26,14 @@ raises and exits non-zero; nothing is caught):
      path's rows after the prefilter (about 40M x 4, built by the
      pipeline's own stages), the 30/40/30 table the direct path would sort
      (40.6M x 7) and a table of heavy ties, sentinel rows and top-bit
-     words; then the survivor-scan kernel vs its plain version on the
-     tables the global stage scans, sorted by the sort kernel as the
-     pipeline sorts them (the spacer table, 2 words; the rows the
-     prefilter keeps on the IUPAC path, 4 words, and on the amplicon path,
-     7 words), and on a table with long runs at every granularity;
+     words; then the survivor-scan kernel in both its modes (validity
+     from the keys, as the global stage calls it, and from an array) vs
+     its plain version on the tables the global stage scans, sorted by
+     the sort kernel as the pipeline sorts them (the spacer table, 2
+     words; the rows the prefilter keeps on the IUPAC path, 4 words, and
+     on the amplicon path, 7 words), on a table with long runs at every
+     granularity and on one whose groups end on the kernel's tile and
+     look-ahead edges, each mode's busy time split by kernel;
   4-6. three paths through ``krisp_tpu_torch.cli.krisp_fasta.main``, on 5
      synthetic genomes each (bench.py's recipe: seed 7, 3 planted shared
      regions of the window length, genomes 0-1 ingroup; plus one planted
@@ -49,7 +52,8 @@ raises and exits non-zero; nothing is caught):
      launch counter reset just before and each kernel of the path required
      to have launched;
   7. merge kernel vs its plain version (the sort of both runs), exact, with
-     median CUDA-event times of both: the two sorted halves of the A/B data
+     median CUDA-event times of both (and, for keys of up to 2 words, of
+     one ``torch.sort`` of both runs' fused keys): the two sorted halves of the A/B data
      (2 x 20M rows x 2 words), the spacer table of genomes 0-2 and of
      genomes 3-4 sorted apart, the amplicon table (7 words) split the same
      way, a heavy-tie and sentinel table (3 words) split unevenly, and runs
@@ -125,22 +129,36 @@ def cuda_ms(fn, reps=5):
     return float(np.median(times))
 
 
-def busy_ms(fn, reps=5):
+def busy_by_kernel(fn, reps=5):
     """The card's busy time of one call of ``fn`` in ms (kernels, memsets
     and copies, host gaps left out) from a profiler trace of ``reps``
-    calls."""
+    calls, and that time by kernel: {first 40 characters of the name: ms
+    a call}.  A trace that holds no device event at all (the profiler now
+    and then returns one empty) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    check(busy_us > 0, "the profiler saw no device time")
-    return busy_us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                by_kernel[e.key[:40]] = (by_kernel.get(e.key[:40], 0.0)
+                                         + e.self_device_time_total / reps
+                                         / 1e3)
+        busy = sum(by_kernel.values())
+        if busy > 0:
+            return busy, by_kernel
+    check(False, "the profiler saw no device time in three traces")
+
+
+def busy_ms(fn, reps=5):
+    """``busy_by_kernel``'s total alone."""
+    return busy_by_kernel(fn, reps)[0]
 
 
 def timed(fn, reps=5):
@@ -206,14 +224,16 @@ def synth_genomes(tmpdir: Path, size: int, geom, iupac: bool = False):
 
 def kernel_wrappers():
     """The kernel wrappers by name; each counts its launches.  The
-    window-key kernel has two: its TPU mode and its table mode."""
+    window-key kernel has two: its TPU mode and its table mode; so has the
+    survivor scan: its valid-array mode and its layout mode."""
     from krisp_tpu_torch.ops.merge import merge_sorted_words
     from krisp_tpu_torch.ops.pack import window_keys_both, window_keys_table
-    from krisp_tpu_torch.ops.scan import survivor_scan
+    from krisp_tpu_torch.ops.scan import survivor_scan, survivor_scan_layout
     from krisp_tpu_torch.ops.sort import sort_words
     return {"window_keys_both": window_keys_both,
             "window_keys_table": window_keys_table, "sort_words": sort_words,
             "survivor_scan": survivor_scan,
+            "survivor_scan_layout": survivor_scan_layout,
             "merge_sorted_words": merge_sorted_words}
 
 
@@ -223,11 +243,12 @@ def reset_launches():
 
 
 def launch_counts():
-    """Launches per kernel (the window-key kernel's two modes together)."""
+    """Launches per kernel (each kernel's two modes together)."""
     w = kernel_wrappers()
     counts = {k: fn.launches for k, fn in w.items()
-              if k != "window_keys_table"}
+              if k not in ("window_keys_table", "survivor_scan_layout")}
     counts["window_keys_both"] += w["window_keys_table"].launches
+    counts["survivor_scan"] += w["survivor_scan_layout"].launches
     return counts
 
 
@@ -256,6 +277,7 @@ def phase_build():
                       "window_keys.cu"], f"expected four kernel sources: "
           f"{sources}")
     check(lib.krisp_survivor_scan_block_rows() > 0
+          and lib.krisp_survivor_scan_ahead_rows() > 0
           and lib.krisp_sort_words_block_rows() > 0
           and lib.krisp_window_keys_max_len() > 0
           and lib.krisp_merge_words_max_words() == 64
@@ -346,24 +368,6 @@ def _tie_table(dev, V, n):
     words = pool[rng.integers(0, pool.size, (V, n))]
     words[:, rng.random(n) < 0.1] = 0xFFFFFFFF
     return torch.from_numpy(words.view(np.int32)).to(dev)
-
-
-def _long_run_table(dev, n):
-    from krisp_tpu_torch.ops.encode import KeyLayout
-    rng = np.random.default_rng(SEED)
-    layout = KeyLayout(*SPACER, 2, N_FILES)
-    words = np.stack([rng.integers(0, 4, n).astype(np.uint32) << 28
-                      for _ in range(layout.n_words)])
-    fw, fsh = layout.file_word_shift()
-    words[fw] &= ~np.uint32(layout.file_sentinel << fsh)
-    ids = rng.integers(0, N_FILES, n).astype(np.uint32)
-    ids[rng.random(n) < 0.05] = layout.file_sentinel
-    words[fw] |= ids << fsh
-    words = words[:, np.lexsort(tuple(words[::-1]))]
-    valid = ((words[fw] >> np.uint32(fsh)) & np.uint32(layout.file_sentinel)
-             ) != layout.file_sentinel
-    return (layout, torch.from_numpy(words.view(np.int32)).to(dev),
-            torch.from_numpy(valid).to(dev))
 
 
 def _fused_key(table):
@@ -462,41 +466,99 @@ def phase_sort(dev, spacer, amplicon, iupac):
     return results, scan_tables
 
 
-def phase_scan(dev, scan_tables):
-    """The survivor-scan kernel vs its plain version on each path's sorted
-    table (2, 4 and 7 words) and on a table of long runs: keep, counts and
-    gid exact, with median CUDA-event times of both."""
-    from krisp_tpu_torch.ops.intersect import valid_rows
-    from krisp_tpu_torch.ops.scan import (survivor_scan,
-                                          survivor_scan_reference)
+def _boundary_table(dev, tile, ahead, reps=330):
+    """A spacer-layout table whose flank groups end where the scan
+    kernel's tiles and look-ahead do: groups of a tile, a tile +- 1, the
+    look-ahead and one or two rows more, tiny groups and groups of several
+    tiles, repeated, so that groups start at every offset of a tile
+    (about 10M rows at a 4,096-row tile).  Keys as the pipeline makes
+    them: flank (the group number in word 0), genome id (some sentinel)
+    and a random mid; bits below the mid 0."""
+    from krisp_tpu_torch.ops.encode import KeyLayout
+    rng = np.random.default_rng(SEED + 2)
+    layout = KeyLayout(*SPACER, 2, N_FILES)
+    check(layout.n_words == 2, "the boundary table takes 2-word keys")
+    sizes = np.tile([tile - 1, ahead, ahead + 1, tile, 1, 2, 3, tile // 2,
+                     5 * tile + 7, ahead + 2, 1, tile + 1], reps)
+    n = int(sizes.sum())
+    group = np.repeat(np.arange(sizes.size, dtype=np.uint32), sizes)
+    fw, fsh = layout.file_word_shift()
+    ids = rng.integers(0, N_FILES, n).astype(np.uint32)
+    ids[rng.random(n) < 0.05] = layout.file_sentinel
+    mid_shift = 32 * layout.n_words - layout.total_bits
+    mid = rng.integers(0, 4, n).astype(np.uint32) << np.uint32(mid_shift)
+    words = np.stack([group, (ids << np.uint32(fsh)) | mid])
+    check(fw == 1, "the spacer layout's genome id lies in word 1")
+    words = np.ascontiguousarray(words[:, np.lexsort(tuple(words[::-1]))])
+    return layout, torch.from_numpy(words.view(np.int32)).to(dev)
 
-    tables = {k: (layout, w, valid_rows(w, layout))
-              for k, (layout, w) in scan_tables.items()}
-    tables["long_runs"] = _long_run_table(dev, 10_000_017)
+
+def phase_scan(dev, scan_tables):
+    """The survivor-scan kernel in both modes (validity from the keys, as
+    the pipeline calls it, and from an array) vs its plain version on each
+    path's sorted table (2, 4 and 7 words), on a table of long runs and on
+    a table of groups that end on the kernel's tile and look-ahead edges:
+    keep, counts and gid exact, with median CUDA-event times of both and
+    the busy time of each mode split by kernel."""
+    from krisp_tpu_torch.kernels import build
+    from krisp_tpu_torch.ops.scan import (survivor_scan, survivor_scan_layout,
+                                          survivor_scan_layout_reference,
+                                          survivor_scan_reference, valid_rows)
+    from krisp_tpu_torch.tools.kernel_times import long_runs_table
+
+    lib = build.load_library()
+    tables = dict(scan_tables)
+    w, layout = long_runs_table(np.random.default_rng(SEED), 10_000_017,
+                                dev)
+    tables["long_runs"] = (layout, w)
+    tables["tile_boundaries"] = _boundary_table(
+        dev, lib.krisp_survivor_scan_block_rows(),
+        lib.krisp_survivor_scan_ahead_rows())
     results = []
-    for name, (layout, w, v) in tables.items():
+    for name, (layout, w) in tables.items():
+        v = valid_rows(w, layout)
         args = (w, v, layout.flank_bits, layout.file_off + layout.file_bits,
                 N_FILES)
-        got = survivor_scan(*args)
-        want = survivor_scan_reference(*args)
-        torch.cuda.synchronize()
-        for g, r, what in zip(got, want, ("keep", "counts", "gid")):
-            check(g.dtype == r.dtype and torch.equal(g, r),
-                  f"survivor scan {what} differs on {name}")
+        largs = (w, layout, N_FILES)
+        want = survivor_scan_layout_reference(*largs)
+        errs = []
+        for mode, got in (("layout", survivor_scan_layout(*largs)),
+                          ("valid", survivor_scan(*args))):
+            torch.cuda.synchronize()
+            for g, r, what in zip(got, want, ("keep", "counts", "gid")):
+                check(g.dtype == r.dtype and torch.equal(g, r),
+                      f"survivor scan ({mode} mode) {what} differs on {name}")
+            errs.append(max_abs_err(got, want))
+            del got
         n_keep = int(want[0].sum())
         check(n_keep > 0, f"no survivor in {name}")
-        ms, busy = timed(lambda: survivor_scan(*args))
-        plain_ms = cuda_ms(lambda: survivor_scan_reference(*args))
+        del want
+        ms = cuda_ms(lambda: survivor_scan_layout(*largs))
+        busy, by_kernel = busy_by_kernel(lambda: survivor_scan_layout(*largs))
+        plain_ms = cuda_ms(lambda: survivor_scan_layout_reference(*largs))
+        valid_ms = cuda_ms(lambda: survivor_scan(*args))
+        valid_busy, valid_by_kernel = busy_by_kernel(
+            lambda: survivor_scan(*args))
+        valid_plain_ms = cuda_ms(lambda: survivor_scan_reference(*args))
         W, n = w.shape
-        # in: W words and the valid byte a row; out: keep (1 byte), counts
-        # and gid (4 bytes each) a row
-        results.append(dict(table=name, rows=n, words=W, n_keep=n_keep,
-                            max_abs_err=max_abs_err(got, want), ms=ms,
-                            busy_ms=busy, plain_ms=plain_ms,
-                            bound_ms=bound_ms(n * (4 * W + 1 + 9))))
-        print(f"phase 3 survivor_scan {name}: {n} rows x {W} words, exact, "
-              f"{n_keep} survivors, kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
+        # in: W words a row (and the valid byte in array mode); out: keep
+        # (1 byte), counts and gid (4 bytes each) a row
+        results.append(dict(
+            table=name, rows=n, words=W, n_keep=n_keep,
+            max_abs_err=max(errs), ms=ms, busy_ms=busy, by_kernel=by_kernel,
+            plain_ms=plain_ms, bound_ms=bound_ms(n * (4 * W + 9)),
+            valid_mode_ms=valid_ms, valid_mode_busy_ms=valid_busy,
+            valid_mode_by_kernel=valid_by_kernel,
+            valid_mode_plain_ms=valid_plain_ms,
+            valid_mode_bound_ms=bound_ms(n * (4 * W + 10))))
+        split = ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+        print(f"phase 3 survivor_scan {name}: {n} rows x {W} words, exact "
+              f"in both modes, {n_keep} survivors; layout mode kernel "
+              f"{ms:.3f} ms ({busy:.4f} busy: {split}), plain "
+              f"{plain_ms:.3f} ms; valid mode kernel {valid_ms:.3f} ms "
+              f"({valid_busy:.4f} busy), plain {valid_plain_ms:.3f} ms",
+              flush=True)
+        del v
     return results
 
 
@@ -624,19 +686,25 @@ def _check_merge(name, a, b, time_it=True):
     check(err == 0 and torch.equal(got, want),
           f"merge kernel differs from its plain version on {name}")
     del got, want
-    ms = busy = plain_ms = None
+    ms = busy = plain_ms = library_ms = None
+    V = a.shape[0]
     if time_it:
         ms, busy = timed(lambda: merge_sorted_words(a, b))
         plain_ms = cuda_ms(lambda: merge_sorted_words_reference(a, b))
-    V = a.shape[0]
+        if V <= 2:   # one torch.sort of both runs' fused keys
+            key = _fused_key(torch.cat([a, b], dim=1))
+            library_ms = cuda_ms(lambda: torch.sort(key))
+            del key
     n_bytes = 2 * 4 * V * (a.shape[1] + b.shape[1])   # both runs in, out
     print(f"phase 7 merge_sorted_words {name}: {a.shape[1]} + {b.shape[1]} "
           f"rows x {V} words, exact"
           + (f", kernel {ms:.3f} ms, plain (sort of both) {plain_ms:.3f} ms"
-             if time_it else ""), flush=True)
+             if time_it else "")
+          + (f", one torch.sort of the fused keys {library_ms:.3f} ms"
+             if library_ms is not None else ""), flush=True)
     return dict(table=name, rows_a=a.shape[1], rows_b=b.shape[1], words=V,
                 max_abs_err=err, ms=ms, busy_ms=busy, plain_ms=plain_ms,
-                bound_ms=bound_ms(n_bytes))
+                library_ms=library_ms, bound_ms=bound_ms(n_bytes))
 
 
 def _split_sorted(flat, cut):
@@ -927,9 +995,16 @@ def main():
             tpu_mode_bound_ms=main_pack["bound_ms"]),
         row("sort_words", "sort_words.cu", "krisp_tpu/ops/pallas_sort.py:173",
             main_launches["sort_words"], main_runs, sort_res, main_sort),
+        # the global stage scans in layout mode: its figures make the row,
+        # the valid-array mode's stand beside them
         row("survivor_scan", "survivor_scan.cu",
             "krisp_tpu/ops/pallas_scan.py:218",
-            main_launches["survivor_scan"], main_runs, scan_res, main_scan),
+            main_launches["survivor_scan"], main_runs, scan_res, main_scan,
+            busy_by_kernel=main_scan["by_kernel"],
+            valid_mode_ms=main_scan["valid_mode_ms"],
+            valid_mode_busy_ms=main_scan["valid_mode_busy_ms"],
+            valid_mode_plain_ms=main_scan["valid_mode_plain_ms"],
+            valid_mode_bound_ms=main_scan["valid_mode_bound_ms"]),
         # no production path merges: its main path is the A/B entry point
         row("merge_sorted_words", "merge_words.cu",
             "krisp_tpu/ops/pallas_merge.py:161", ab_res["launches"], 1,

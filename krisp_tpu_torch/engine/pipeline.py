@@ -50,7 +50,8 @@ from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
 from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
                              extract_keys_ascii, extract_keys_packed_in,
-                             global_stage, valid_rows)
+                             global_stage)
+from ..ops.scan import valid_rows
 from ..ops.sort import sort_words
 from .bigscale import partitioned_global_intersect
 from .checkpoint import TableCache

@@ -39,9 +39,10 @@ _SIGNATURES = {
                                  _I, _U], _I),
     "krisp_window_keys_max_runs": ([], _I),
     "krisp_window_keys_max_len": ([], _I),
-    "krisp_survivor_scan": ([_I, _P, _P, _I, _LL, _P, _I, _I, _I, _P, _P, _P,
-                             _P, _P, _P], _I),
+    "krisp_survivor_scan": ([_I, _P, _P, _I, _LL, _P, _I, _I, _U, _I, _I, _I,
+                             _P, _P, _P, _P, _P], _I),
     "krisp_survivor_scan_block_rows": ([], _I),
+    "krisp_survivor_scan_ahead_rows": ([], _I),
     "krisp_sort_words_vary": ([_I, _P, _P, _I, _LL, _P], _I),
     "krisp_sort_words": ([_I, _P, _P, _I, _LL, _P, _I, _P, _P, _P, _P], _I),
     "krisp_sort_words_block_rows": ([], _I),

@@ -27,7 +27,7 @@ from ..convert import i32, to_i32
 from ..metrics import GLOBAL as METRICS
 from .encode import KeyLayout, window_keys_bits
 from .pack import SENTINEL, window_keys_table
-from .scan import _masked_head, _run_heads, survivor_scan
+from .scan import _masked_head, _run_heads, survivor_scan_layout
 from .sort import sort_with_rowid, sort_words
 
 
@@ -135,14 +135,6 @@ def compact_rows(arrays, keep: torch.Tensor):
     return [a[..., idx] for a in arrays], idx.numel()
 
 
-def valid_rows(keys: torch.Tensor, layout: KeyLayout) -> torch.Tensor:
-    """bool[n]: the rows of int32[W, n] keys whose genome-id field is not
-    the sentinel."""
-    fw, fsh = layout.file_word_shift()
-    field = (keys[fw] >> fsh) & layout.file_sentinel
-    return field != layout.file_sentinel
-
-
 def prefilter_rows(flat: torch.Tensor, layout: KeyLayout,
                    n_files: int) -> torch.Tensor:
     """Row ids (int64) of the rows of sentinel-marked keys int32[W, n]
@@ -219,9 +211,7 @@ def global_stage(table: list, layout: KeyLayout, n_files: int,
         keys = sort_words(flat)   # sort_rows' backend, without its list
     del flat
     with METRICS.stage("scan", device=dev):
-        keep, counts, gid = survivor_scan(
-            keys, valid_rows(keys, layout), layout.flank_bits,
-            layout.file_off + layout.file_bits, n_files)
+        keep, counts, gid = survivor_scan_layout(keys, layout, n_files)
     with METRICS.stage("compact", device=dev):
         (words, counts, gid), _ = compact_rows([keys, counts, gid], keep)
     return words, counts, gid, n_pre
@@ -239,11 +229,6 @@ def _run_sums(weights: torch.Tensor, runs: torch.Tensor,
     return to_i32(s[rows + runs[rows] - 1] - s[rows] + weights[rows])
 
 
-def _scan(keys: torch.Tensor, layout: KeyLayout, n_files: int):
-    return survivor_scan(keys, valid_rows(keys, layout), layout.flank_bits,
-                         layout.file_off + layout.file_bits, n_files)
-
-
 def survivor_mark_weighted(keys: torch.Tensor, layout: KeyLayout,
                            n_files: int, weights: torch.Tensor):
     """krisp_tpu's ``survivor_mark_bits(..., weights=)`` over sorted keys
@@ -254,7 +239,7 @@ def survivor_mark_weighted(keys: torch.Tensor, layout: KeyLayout,
     kernel gives them, and its run lengths at valid head rows, over which
     ``_run_sums`` sums the weights.  Returns (keep bool[n], counts int32[n]
     (u32 bit patterns, 0 off valid heads), gid int32[n])."""
-    keep, runs, gid = _scan(keys, layout, n_files)
+    keep, runs, gid = survivor_scan_layout(keys, layout, n_files)
     heads = torch.nonzero(runs).squeeze(1)
     counts = torch.zeros_like(runs)
     counts[heads] = _run_sums(weights, runs, heads)
@@ -287,7 +272,7 @@ def global_intersect_rows(table: list, layout: KeyLayout, n_files: int):
     W = layout.n_words
     rows = sort_words(table.pop())
     keys, cnt_s = rows[:W], rows[W]
-    keep, runs, gid = _scan(keys, layout, n_files)
+    keep, runs, gid = survivor_scan_layout(keys, layout, n_files)
     kept = torch.nonzero(keep).squeeze(1)
     return keys[:, kept], _run_sums(cnt_s, runs, kept), gid[kept]
 

@@ -121,3 +121,32 @@ def test_compact_rows_in_order():
     (out,), n_keep = TI.compact_rows([a], keep)
     assert n_keep == 3
     assert out.tolist() == [[1, 2, 4], [6, 7, 9]]
+
+
+@pytest.mark.parametrize("geom", [(25, 1, 2), (4, 1, 3)])
+def test_global_stage_scans_in_layout_mode(monkeypatch, geom):
+    """The global stage's scan is the layout mode (validity from the
+    keys, no valid_rows pass), which equals the valid-array call; the
+    stage's outputs stay krisp_tpu's."""
+    from krisp_tpu_torch.ops import scan as TS
+    calls = []
+
+    def layout_mode(keys, layout, n_files):
+        got = TS.survivor_scan_layout(keys, layout, n_files)
+        want = TS.survivor_scan(keys, TS.valid_rows(keys, layout),
+                                layout.flank_bits,
+                                layout.file_off + layout.file_bits, n_files)
+        for g, r in zip(got, want):
+            assert torch.equal(g, r)
+        calls.append(keys.shape)
+        return got
+
+    monkeypatch.setattr(TI, "survivor_scan_layout", layout_mode)
+    stacked = _genomes(sum(geom) + 1, sum(geom))
+    j_keys = _jax_keys(stacked, geom)
+    packed = np.asarray(JI.fused_global_packed(
+        tuple(j_keys), left=geom[0], mid=geom[1], right=geom[2], bits=2,
+        n_files=N_FILES, cap=1 << 16))
+    _assert_global_equal(_port_global(_port_keys(stacked, geom), geom),
+                         packed, j_keys[0].shape[0])
+    assert len(calls) == 1

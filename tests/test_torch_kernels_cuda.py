@@ -2,14 +2,24 @@
 NVIDIA GPU and nvcc; skipped elsewhere.  Integer outputs: the tolerance
 is 0.  Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from krisp_tpu_torch.ops import merge, pack, scan, sort
 from krisp_tpu_torch.ops.encode import KeyLayout
+from torch_scan_tables import edge_table, edge_tables
 
 pytestmark = pytest.mark.cuda
+
+_SCAN_SRC = (Path(scan.__file__).resolve().parents[1] / "csrc"
+             / "survivor_scan.cu").read_text()
+SCAN_TILE, SCAN_AHEAD = (int(re.search(rf"constexpr int {k} = (\d+);",
+                                       _SCAN_SRC).group(1))
+                         for k in ("kTile", "kAhead"))
 
 
 @pytest.fixture
@@ -209,19 +219,87 @@ def test_sort_words_kernel_every_digit_width(dev, width, V):
     assert torch.equal(got, sort.sort_words_reference(w))
 
 
-@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
+@pytest.mark.parametrize("n", [0, 1, 2, SCAN_TILE - 1, SCAN_TILE,
+                               SCAN_TILE + 1, 3 * SCAN_TILE - 1,
+                               3 * SCAN_TILE + 1])
 def test_survivor_scan_kernel_takes_small_tables(dev, n):
     """n = 0 (the prefilter kept no row) returns empty outputs without a
-    launch; small n launches."""
+    launch; n of 1, 2 and a whole number of tiles +- 1 launch, in both
+    modes (one flank group: every tile but the last is open)."""
     w = torch.zeros((2, n), dtype=torch.int32, device=dev)
     v = torch.ones(n, dtype=torch.bool, device=dev)
-    before = scan.survivor_scan.launches
+    layout = KeyLayout(25, 1, 2, 2, 1)
+    before = scan.survivor_scan.launches, scan.survivor_scan_layout.launches
     got = scan.survivor_scan(w, v, 54, 58, 1)
+    got_l = scan.survivor_scan_layout(w, layout, 1)
     want = scan.survivor_scan_reference(w, v, 54, 58, 1)
     torch.cuda.synchronize()
-    assert scan.survivor_scan.launches == before + (n > 0)
-    for g, r in zip(got, want):
+    assert (scan.survivor_scan.launches, scan.survivor_scan_layout.launches
+            ) == (before[0] + (n > 0), before[1] + (n > 0))
+    for g, gl, r in zip(got, got_l, want):
         assert g.shape == (n,) and g.dtype == r.dtype and torch.equal(g, r)
+        assert torch.equal(gl, r)
+
+
+def _scan_both_modes(layout, w, v, n_files):
+    """Both kernel modes vs the plain version on one table."""
+    ff = layout.file_off + layout.file_bits
+    got = scan.survivor_scan(w, v, layout.flank_bits, ff, n_files)
+    got_l = scan.survivor_scan_layout(w, layout, n_files)
+    want = scan.survivor_scan_reference(w, v, layout.flank_bits, ff, n_files)
+    torch.cuda.synchronize()
+    for g, gl, r in zip(got, got_l, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+        assert gl.dtype == r.dtype and torch.equal(gl, r)
+    return want
+
+
+@pytest.mark.parametrize("n", [3 * SCAN_TILE + 1, 1_000_003, 10_000_019])
+@pytest.mark.parametrize("key", [(25, 1, 2, 2), (25, 1, 2, 4),
+                                 (30, 40, 30, 2)],
+                         ids=["spacer_2bit", "iupac_4bit", "amplicon"])
+def test_survivor_scan_short_groups_match_plain(dev, n, key):
+    """Tables like the main path's: random keys whose flanks come from a
+    pool of n / 4 values, so most groups hold a few rows, some span all
+    five genomes, and almost no group is open at the look-ahead."""
+    rng = np.random.default_rng(n)
+    layout = KeyLayout(*key, 5)
+    W = layout.n_words
+    pool = rng.integers(0, 2**32, (W, n // 4 + 1), dtype=np.uint64).astype(
+        np.uint32)
+    words = pool[:, rng.integers(0, pool.shape[1], n)]
+    full, rem = divmod(layout.flank_bits, 32)
+    if rem:   # bits past the flank: random mids
+        words[full] = ((words[full] & np.uint32((0xFFFFFFFF << (32 - rem))
+                                                & 0xFFFFFFFF))
+                       | (rng.integers(0, 2**32, n, dtype=np.uint64)
+                          .astype(np.uint32)
+                          & np.uint32((1 << (32 - rem)) - 1)))
+    fw, fsh = layout.file_word_shift()
+    words[fw] &= ~np.uint32(layout.file_sentinel << fsh)
+    ids = rng.integers(0, 5, n).astype(np.uint32)
+    ids[rng.random(n) < 0.05] = layout.file_sentinel
+    words[fw] |= ids << fsh
+    words = words[:, np.lexsort(tuple(words[::-1]))]
+    valid = ((words[fw] >> np.uint32(fsh)) & np.uint32(layout.file_sentinel)
+             ) != layout.file_sentinel
+    want = _scan_both_modes(layout,
+                            torch.from_numpy(words.view(np.int32)).to(dev),
+                            torch.from_numpy(valid).to(dev), 5)
+    assert bool(want[0].any())
+
+
+@pytest.mark.parametrize("name", [c[0] for c in edge_tables(SCAN_TILE,
+                                                            SCAN_AHEAD)])
+def test_survivor_scan_edge_tables_match_plain(dev, name):
+    """Groups and runs ending on tile edges and at the end of the
+    look-ahead (open or closed), one group through every tile, every row
+    its own group, no valid row: at the kernel's own tile and look-ahead,
+    both modes."""
+    layout, words, valid, n_files = edge_table(name, SCAN_TILE, SCAN_AHEAD,
+                                               KeyLayout)
+    _scan_both_modes(layout, torch.from_numpy(words.view(np.int32)).to(dev),
+                     torch.from_numpy(valid).to(dev), n_files)
 
 
 @pytest.mark.parametrize("V", [1, 2, 3, 7, 9])
@@ -285,12 +363,14 @@ def test_staged_path_cuda_matches_cpu(dev, tmp_path, monkeypatch, geom):
     paths = _write_genomes(tmp_path, geom, 4, 6000, sum(geom))
     got = {}
     for d in (dev, "cpu"):
-        before = (sort.sort_words.launches, scan.survivor_scan.launches,
+        before = (sort.sort_words.launches,
+                  scan.survivor_scan_layout.launches,
                   pack.window_keys_table.launches)
         groups = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom),
                               ingroup_filter=False,
                               workdir=str(tmp_path / f"wd_{d}"), device=d)
-        after = (sort.sort_words.launches, scan.survivor_scan.launches,
+        after = (sort.sort_words.launches,
+                 scan.survivor_scan_layout.launches,
                  pack.window_keys_table.launches)
         if d != "cpu":
             assert all(a > b for a, b in zip(after, before))
