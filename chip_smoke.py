@@ -89,9 +89,10 @@ raises and exits non-zero; nothing is caught):
           (equal sha256 and lines), and k 100 ``--complements`` as ``auto``
           routes it (the device engine, one shot), held to invariants in
           torch ops (lines == 2 x valid windows, the pulled unique table
-          strictly increasing, its counts summing to the lines); one
-          warm-up run, best of 3, stage split, peak device memory, the
-          card's busy share from a profiler trace of one run; the
+          strictly increasing, its counts summing to the lines); k 28:
+          one warm-up run, best of 3, and the card's busy share from a
+          profiler trace of one run; k 100: one run (8 GB of text);
+          stage split and peak device memory; the
           window-key and sort kernels at these shapes against their plain
           versions;
        c. at 2 Mb, k 28 ``--canonicals`` under KRISP_TPU_HBM_BUDGET=
@@ -99,6 +100,26 @@ raises and exits non-zero; nothing is caught):
           engine.
      Every device-engine run on the card must return a count (no
      out-of-memory fallback) and launch both kernels.
+ 12. krisp_vcf (``krisp_tpu_torch.cli.krisp_vcf``; the classifier is torch
+     ops, no hand kernel: each entry point counts the batches it runs on
+     the card, and every CUDA run below must have counted some):
+       a. the CLI on a fuzz-style VCF (``tests/test_vcf_fuzz.py``'s recipe,
+          two contigs, about 2,100 records x 8 samples) and on the
+          dense-indel VCF: ``--engine device`` on CUDA and CPU and
+          ``--engine host`` write equal, non-empty bytes, and so do
+          ``--vcf -`` on CUDA and on the CPU (on the one-contig VCF, the
+          file routes' bytes too: a stream scans every contig as one run,
+          so on two contigs krisp_tpu's windows differ as well);
+       b. the classifier alone at cohort scale (500 samples, 8 alleles, 4
+          groups; 32,768 rows on the small pull, 4,096 on the full
+          layout and ``classify_batch``), exact against the numpy mirror,
+          timed; bound: the bytes uploaded and pulled;
+       c. ``tools/bench_vcf_scaled.py``'s 100,000 records x 100 samples
+          with ``--index``: the device engine on CUDA best of 3 (variants/s,
+          stage split, peak device memory, a traced run's busy share) and
+          once on the CPU, equal bytes; a 10,000-record ``--pos`` slice on
+          CUDA, the CPU and the host engine, equal bytes.  The four
+          kernels' launches in these runs are recorded (``vcf_launches``).
 Then a ``details`` line with every measurement as JSON, one JSON line of
 per-kernel results (each with its least time ``bound_ms``: the bytes its
 inputs and outputs hold once, over the card's 3.35 TB/s), the
@@ -108,6 +129,7 @@ inputs and outputs hold once, over the card's 3.35 TB/s), the
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import json
 import os
@@ -132,6 +154,13 @@ AB_N = 20_000_000
 #: kstream inputs: one genome (phase 11 b) and slices of it (a, c)
 KS_FULL, KS_SMALL, KS_SLICE, KS_SEG = 40_000_000, 1_000_000, 200_000, 2_000_000
 KS_SEG_BUDGET = 36_000_000
+#: krisp_vcf inputs (phase 12): the fuzz-style VCF's seed and contig length
+#: (two contigs, about 2,100 records), the scaled bench's records and
+#: samples and its slice, the cohort batches (rows on the small pull, rows
+#: on the full layout, samples, alleles, groups)
+VCF_SEED, VCF_FUZZ_LEN = 11, 60_000
+VCF_SCALED, VCF_SLICE_RECORDS = (100_000, 100), 10_000
+VCF_COHORT = (32_768, 4_096, 500, 8, 4)
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
 
 
@@ -1189,7 +1218,7 @@ def _kstream_kernels(dev, padded, k, mode):
     return win, srt
 
 
-def phase_kstream_full(dev, files, k100_runs=3):
+def phase_kstream_full(dev, files, k100_runs=1):
     """(b): 40 Mb, k 28 canonicals on both engines (one warm-up each, best
     of 3, the card's busy time from a trace of one more device run) and
     k 100 complements under auto (best of ``k100_runs``; the k 28 runs
@@ -1336,6 +1365,517 @@ def phase_kstream_segmented(td: Path, files):
                 launches=launches)
 
 
+VCF_GROUPS = {"EU1": ["e1", "e2", "e3", "e4"], "NA1": ["n1", "n2", "n3", "n4"]}
+VCF_SAMPLES = [s for ss in VCF_GROUPS.values() for s in ss]
+VCF_HEADER = ("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER"
+              "\tINFO\tFORMAT\t")
+
+
+def _vcf_meta(path: Path, groups):
+    path.write_text("sample_id,group\n" + "".join(
+        f"{s},{g}\n" for g, ss in groups.items() for s in ss))
+    return str(path)
+
+
+def _vcf_reference(path: Path, seqs):
+    with open(path, "w") as fh:
+        for c, seq in seqs.items():
+            fh.write(f">{c}\n")
+            for i in range(0, len(seq), 70):
+                fh.write(seq[i:i + 70] + "\n")
+    return str(path)
+
+
+def synth_vcf_fuzz(td: Path, seed, contigs=("ctg1", "ctg2"),
+                   contig_len=VCF_FUZZ_LEN):
+    """``tests/test_vcf_fuzz.py``'s ``synth_fuzz_inputs`` recipe (indels,
+    multiallelics, missing calls, failing DP gates, low QUAL and MQ, 8
+    samples in 2 groups) over several contigs, with one change: at EU1's
+    fixed-ALT sites NA1 calls REF (the test's recipe calls het there, so
+    no window can be diagnostic).  Returns (meta, reference, vcf.gz)."""
+    td.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    meta = _vcf_meta(td / "meta.csv", VCF_GROUPS)
+    seqs = {c: "".join(rng.choice(list("ACGT"), size=contig_len))
+            for c in contigs}
+    ref = _vcf_reference(td / "ref.fasta", seqs)
+    lines = []
+    for c, seq in seqs.items():
+        pos = 60
+        while pos < contig_len - 200:
+            ref_len = int(rng.choice([1, 1, 1, 2, 3]))
+            ref_allele = seq[pos - 1:pos - 1 + ref_len]
+            n_alts = int(rng.choice([1, 1, 1, 2]))
+            alts = []
+            while len(alts) < n_alts:
+                alt_len = int(rng.choice([1, 1, ref_len, ref_len + 1,
+                                          max(1, ref_len - 1)]))
+                a = "".join(rng.choice(list("ACGT"), size=alt_len))
+                if a != ref_allele and a not in alts:
+                    alts.append(a)
+            qual = int(rng.choice([900, 900, 900, 5]))
+            mq = int(rng.choice([60, 60, 60, 10]))
+            scenario = rng.random()
+            cols = []
+            for g, ss in VCF_GROUPS.items():
+                for _ in ss:
+                    r = rng.random()
+                    if r < 0.08:
+                        cols.append("./.:.:.:.")
+                    elif r < 0.14:
+                        cols.append("0/0:" + ",".join(["4"] + ["0"] * n_alts)
+                                    + ":4:99")
+                    elif scenario < 0.35 and g == "EU1":
+                        ad = ["0"] * (1 + n_alts)
+                        ad[1] = "48"
+                        cols.append(f"1/1:{','.join(ad)}:48:99")
+                    elif 0.35 <= scenario < 0.45:
+                        ad = ["25", "25"] + ["0"] * (n_alts - 1)
+                        cols.append(f"0/1:{','.join(ad)}:50:99")
+                    else:
+                        cols.append("0/0:" + ",".join(["50"] + ["0"] * n_alts)
+                                    + ":50:99")
+            lines.append(f"{c}\t{pos}\t.\t{ref_allele}\t{','.join(alts)}\t"
+                         f"{qual}\tPASS\tMQ={mq}\tGT:AD:DP:GQ\t"
+                         + "\t".join(cols) + "\n")
+            pos += int(rng.integers(25, 90))
+    vcf = td / "vars.vcf.gz"
+    with gzip.open(vcf, "wt") as fh:
+        fh.write(VCF_HEADER + "\t".join(VCF_SAMPLES) + "\n")
+        fh.writelines(lines)
+    return meta, ref, str(vcf)
+
+
+def synth_vcf_dense(td: Path, seed):
+    """``tests/test_vcf_fuzz.py``'s ``synth_dense_inputs``: variants 2-13
+    bases apart with overlapping reference spans (the alignment's
+    overlapping-indel text).  Returns (meta, reference, vcf.gz)."""
+    td.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    meta = _vcf_meta(td / "meta.csv", VCF_GROUPS)
+    contig_len = 2500
+    seq = "".join(rng.choice(list("ACGT"), size=contig_len))
+    ref = _vcf_reference(td / "ref.fasta", {"ctg1": seq})
+    lines = []
+    pos = 50
+    while pos < contig_len - 150:
+        ref_len = int(rng.choice([1, 2, 3, 4]))
+        ref_allele = seq[pos - 1:pos - 1 + ref_len]
+        alt = "".join(rng.choice(list("ACGT"),
+                                 size=int(rng.choice([1, 2, ref_len + 2]))))
+        if alt == ref_allele:
+            alt = alt + "A"
+        scenario = rng.random()
+        cols = ["1/1:0,48:48:99" if scenario < 0.4 and g == "EU1"
+                else "0/0:50,0:50:99"
+                for g, ss in VCF_GROUPS.items() for _ in ss]
+        lines.append(f"ctg1\t{pos}\t.\t{ref_allele}\t{alt}\t900\tPASS\tMQ=60"
+                     "\tGT:AD:DP:GQ\t" + "\t".join(cols) + "\n")
+        pos += int(rng.integers(2, 14))
+    vcf = td / "vars.vcf.gz"
+    with gzip.open(vcf, "wt") as fh:
+        fh.write(VCF_HEADER + "\t".join(VCF_SAMPLES) + "\n")
+        fh.writelines(lines)
+    return meta, ref, str(vcf)
+
+
+def synth_vcf_scaled(td: Path, n_records, n_samples, seed=0):
+    """``tools/bench_vcf_scaled.py``'s ``synth_scaled`` (one contig, 4
+    groups): 92.5% conserved REF, 0.5% one group fixed for an ALT (the
+    diagnostic candidates), 3% het, 2.5% half the samples under the DP
+    gate, 1.5% no data; 10% multiallelic, REF 1-3 bases, gaps 10-49.
+    Returns (meta, reference, vcf.gz, planted (pos, group) pairs)."""
+    td.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_groups = 4
+    per = n_samples // n_groups
+    groups = {f"G{g + 1}": [f"g{g + 1}s{i}" for i in range(per)]
+              for g in range(n_groups)}
+    meta = _vcf_meta(td / "meta.csv", groups)
+    gaps = rng.integers(10, 50, n_records)
+    pos = np.cumsum(gaps) + 50
+    contig_len = int(pos[-1]) + 500
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), contig_len)
+    ref = _vcf_reference(td / "ref.fasta", {"ctg1": seq.tobytes().decode()})
+
+    def col(gt, ad, dp, gq):
+        return f"{gt}:{ad}:{dp}:{gq}"
+
+    homref = {1: col("0/0", "50,0", 50, 99), 2: col("0/0", "50,0,0", 50, 99)}
+    homalt = {1: col("1/1", "0,48", 48, 99), 2: col("1/1", "0,48,0", 48, 99)}
+    lowq = {1: col("0/0", "4,0", 4, 99), 2: col("0/0", "4,0,0", 4, 99)}
+    het = {1: col("0/1", "25,25", 50, 99), 2: col("0/1", "25,25,0", 50, 99)}
+    scen = rng.random(n_records)
+    n_alts_arr = np.where(rng.random(n_records) < 0.1, 2, 1)
+    ref_len = rng.choice([1, 1, 1, 1, 1, 1, 2, 3], n_records)
+    diag_group = rng.integers(0, n_groups, n_records)
+    alt_base = {0: "A", 1: "C", 2: "G", 3: "T"}
+    join_homref = {na: "\t".join([homref[na]] * n_samples) for na in (1, 2)}
+    join_het = {na: "\t".join([het[na]] * n_samples) for na in (1, 2)}
+    join_lowq = {na: "\t".join([lowq[na]] * (n_samples // 2)
+                               + [homref[na]] * (n_samples - n_samples // 2))
+                 for na in (1, 2)}
+    join_miss = "\t".join(["./.:.:.:."] * n_samples)
+    join_diag = {(g, na): "\t".join(
+        sum(([homalt[na] if gi == g else homref[na]] * per
+             for gi in range(n_groups)), []))
+        for g in range(n_groups) for na in (1, 2)}
+    planted = []
+    vcf = td / "vars.vcf.gz"
+    with gzip.open(vcf, "wt", compresslevel=1) as fh:
+        fh.write(VCF_HEADER + "\t".join(s for ss in groups.values()
+                                        for s in ss) + "\n")
+        for i in range(n_records):
+            p = int(pos[i])
+            rl = int(ref_len[i])
+            ref_allele = seq[p - 1:p - 1 + rl].tobytes().decode()
+            na = int(n_alts_arr[i])
+            alts = []
+            while len(alts) < na:
+                a = alt_base[rng.integers(0, 4)] * (1 if rl == 1 else
+                                                    int(rng.integers(1, 4)))
+                if a != ref_allele and a not in alts:
+                    alts.append(a)
+            s = scen[i]
+            if s < 0.925:
+                joined = join_homref[na]
+            elif s < 0.930:
+                g = int(diag_group[i])
+                joined = join_diag[(g, na)]
+                planted.append((p, g))
+            elif s < 0.96:
+                joined = join_het[na]
+            elif s < 0.985:
+                joined = join_lowq[na]
+            else:
+                joined = join_miss
+            fh.write(f"ctg1\t{p}\t.\t{ref_allele}\t{','.join(alts)}\t900\t"
+                     f"PASS\tMQ=60\tGT:AD:DP:GQ\t{joined}\n")
+    return meta, ref, str(vcf), planted, list(groups)
+
+
+def vcf_cohort_batch(seed, V, S, A, G):
+    """``classify_batch``'s arrays for V records x S samples x A alleles in
+    G equal groups, in the scaled bench's mix (``tests/torch_vcf_inputs.py``
+    holds the same recipe): most records REF in every group, 20% with one
+    group fixed for an ALT, 10% with mixed or het calls, some under the DP
+    gate, missing or of low quality."""
+    rng = np.random.default_rng(seed)
+    group_id = (np.arange(S) * G // S).astype(np.int32)
+    n_alleles = rng.integers(2, A + 1, V).astype(np.int32)
+    kind = rng.random(V)
+    fixed = np.zeros((V, G), np.int64)
+    diag = kind < 0.2
+    fixed[diag, rng.integers(0, G, diag.sum())] = rng.integers(
+        1, n_alleles[diag])
+    allele = fixed[:, group_id]
+    noisy = (kind >= 0.2) & (kind < 0.3)
+    mixed = noisy[:, None] & (rng.random((V, S)) < 0.3)
+    allele = np.where(mixed, rng.integers(0, n_alleles[:, None], (V, S)),
+                      allele)
+    depth = rng.integers(12, 60, (V, S)).astype(np.int32)
+    ad = np.zeros((V, S, A), np.int32)
+    np.put_along_axis(ad, allele[:, :, None], depth[:, :, None], axis=2)
+    het = noisy[:, None] & (rng.random((V, S)) < 0.2)
+    ad[het, 0] += depth[het] // 2
+    dp = ad.sum(axis=2, dtype=np.int32)
+    gq = rng.integers(45, 99, (V, S)).astype(np.int32)
+    low = ((kind >= 0.3) & (kind < 0.35))[:, None] & (rng.random((V, S))
+                                                      < 0.5)
+    dp[low] = 4
+    miss = ((kind >= 0.35) & (kind < 0.38))[:, None] | (rng.random((V, S))
+                                                        < 0.001)
+    dp[miss] = -1
+    gq[miss] = -1
+    ad[miss] = 0
+    mq = np.where(rng.random(V) < 0.03, 10, 60).astype(np.float32)
+    qual = np.where(rng.random(V) < 0.03, 5, 900).astype(np.float32)
+    return dict(dp=dp, gq=gq, ad=ad, n_alleles=n_alleles, mq=mq, qual=qual,
+                group_id=group_id,
+                group_sizes=np.bincount(group_id, minlength=G)
+                .astype(np.int32))
+
+
+def vcf_classifiers():
+    """The classifier's three entry points; each counts the batches it ran
+    on a card in ``.launches``."""
+    from krisp_tpu_torch.ops import vcfclass as vc
+    return {"classify_batch": vc.classify_batch,
+            "classify_batch_packed": vc.classify_batch_packed,
+            "classify_bits_packed_small": vc.classify_bits_packed_small}
+
+
+def reset_vcf_counts():
+    for fn in vcf_classifiers().values():
+        fn.launches = 0
+
+
+def vcf_counts():
+    return {k: fn.launches for k, fn in vcf_classifiers().items()}
+
+
+def _vcf_cli(argv, stdin=None):
+    """``krisp_tpu_torch.cli.krisp_vcf.main(argv)``, with ``stdin`` (a plain
+    VCF file) as standard input where given; wall seconds."""
+    from krisp_tpu_torch.cli.krisp_vcf import main
+    old = sys.stdin
+    t0 = time.perf_counter()
+    try:
+        if stdin is not None:
+            sys.stdin = open(stdin)
+        rc = main([str(a) for a in argv])
+    finally:
+        if stdin is not None:
+            sys.stdin.close()
+        sys.stdin = old
+    dt = time.perf_counter() - t0
+    check(rc == 0, f"krisp_vcf exit {rc} ({argv[2:]})")
+    return dt
+
+
+def _vcf_bytes(out: Path, tag):
+    return ((out / f"{tag}.csv").read_bytes(),
+            (out / f"{tag}.align.txt").read_bytes())
+
+
+def phase_vcf_small(td: Path):
+    """12 a: the CLI on the fuzz-style two-contig VCF and the dense-indel
+    VCF: ``--engine device`` on CUDA and on the CPU and ``--engine host``
+    write equal, non-empty CSV and alignment bytes; ``--vcf -`` (the
+    streaming route) writes equal, non-empty bytes on CUDA and on the CPU
+    (a stream is one scan over every contig, so on two contigs its windows
+    may differ from the file routes', in krisp_tpu too: recorded; on the
+    one-contig VCF the stream must write the file routes' bytes); both
+    CUDA routes count classification batches, the others none."""
+    results = []
+    for name, n_contigs, (meta, ref, vcf) in (
+            ("fuzz_2contig", 2, synth_vcf_fuzz(td / "vcf_fuzz", VCF_SEED)),
+            ("dense_indels", 1, synth_vcf_dense(td / "vcf_dense", 700))):
+        out = Path(vcf).parent
+        plain = out / "vars.vcf"
+        with gzip.open(vcf, "rb") as fh:
+            plain.write_bytes(fh.read())
+        n_records = sum(1 for line in plain.open() if line[0] != "#")
+        base = [meta, ref, "--groups", "EU1", "NA1", "--min_samples", "3"]
+        res = dict(name=name, records=n_records, samples=len(VCF_SAMPLES))
+        outs = {}
+        for tag, flags, stdin in (
+                ("device_cuda", ["--vcf", vcf, "--engine", "device"], None),
+                ("device_cpu", ["--vcf", vcf, "--engine", "device",
+                                "--device", "cpu"], None),
+                ("host", ["--vcf", vcf, "--engine", "host"], None),
+                ("stdin_cuda", ["--engine", "device"], plain),
+                ("stdin_cpu", ["--engine", "device", "--device", "cpu"],
+                 plain)):
+            reset_vcf_counts()
+            res[f"{tag}_s"] = _vcf_cli(
+                base + flags + ["--out_csv", out / f"{tag}.csv",
+                                "--out_align", out / f"{tag}.align.txt"],
+                stdin)
+            counts = vcf_counts()
+            if tag.endswith("cuda"):
+                res[f"{tag}_batches"] = counts
+            check((sum(counts.values()) > 0) == tag.endswith("cuda"),
+                  f"krisp_vcf {name} {tag}: batches on the card {counts}")
+            outs[tag] = _vcf_bytes(out, tag)
+        rows = outs["host"][0].count(b"\n") - 1
+        files = {outs[t] for t in ("device_cuda", "device_cpu", "host")}
+        check(len(files) == 1 and rows >= 1 and len(outs["host"][1]) > 0,
+              f"krisp_vcf {name}: file routes differ or wrote no row")
+        check(outs["stdin_cuda"] == outs["stdin_cpu"]
+              and outs["stdin_cuda"][0].count(b"\n") > 1,
+              f"krisp_vcf {name}: the stdin route differs on CUDA and CPU")
+        res.update(rows=rows, stdin_rows=outs["stdin_cuda"][0].count(b"\n")
+                   - 1, stdin_equals_file=outs["stdin_cuda"] == outs["host"])
+        # one contig shorter than a chunk: the stream and the file routes
+        # scan the same records in one window run, so the bytes must agree
+        check(n_contigs > 1 or res["stdin_equals_file"],
+              f"krisp_vcf {name}: the stdin route differs from the file's")
+        results.append(res)
+        print(f"phase 12a krisp_vcf {name}: {n_records} records x "
+              f"{len(VCF_SAMPLES)} samples; device CUDA "
+              f"({res['device_cuda_s']:.2f} s) == device CPU "
+              f"({res['device_cpu_s']:.2f} s) == host "
+              f"({res['host_s']:.2f} s), {rows} rows; stdin CUDA "
+              f"({res['stdin_cuda_s']:.2f} s) == stdin CPU, "
+              f"{res['stdin_rows']} rows (== the file routes' bytes: "
+              f"{res['stdin_equals_file']}); "
+              f"batches on the card {res['device_cuda_batches']}, stdin "
+              f"{res['stdin_cuda_batches']}", flush=True)
+    return results
+
+
+def phase_vcf_classifier(dev):
+    """12 b: the classifier alone at cohort scale (500 samples, 8 alleles,
+    4 groups): ``classify_bits_packed_small`` on 32,768 rows (the small
+    pull), ``classify_batch_packed`` (the full layout) and
+    ``classify_batch`` on 4,096, each exact against the numpy mirror on the
+    same arrays; median CUDA-event ms, busy ms, the mirror's host ms; bound:
+    the bytes uploaded and pulled at the card's peak rate."""
+    from krisp_tpu_torch.ops import vcfclass as vc
+    V_small, V_full, S, A, G = VCF_COHORT
+    kw = dict(min_samples=3, min_reads=10, min_geno_qual=40, min_freq=0.1,
+              min_map_qual=30, min_var_qual=10, min_samp_prop=0.9)
+    small_kw = {k: kw[k] for k in ("min_samples", "min_map_qual",
+                                   "min_var_qual", "min_samp_prop")}
+    results = []
+    for name, V in (("classify_bits_packed_small", V_small),
+                    ("classify_batch_packed", V_full),
+                    ("classify_batch", V_full)):
+        arrays = vcf_cohort_batch(V, V, S, A, G)
+        t0 = time.perf_counter()
+        mirror = vc.classify_batch_packed_numpy(n_groups=G, **arrays, **kw)
+        mirror_ms = (time.perf_counter() - t0) * 1e3
+        res = dict(name=name, rows=V, samples=S, alleles=A, groups=G,
+                   mirror_host_ms=mirror_ms)
+        if name == "classify_bits_packed_small":
+            t0 = time.perf_counter()
+            bits = vc.host_gate_counted_bits(
+                arrays["dp"], arrays["gq"], arrays["ad"],
+                arrays["n_alleles"], kw["min_reads"], kw["min_geno_qual"],
+                kw["min_freq"])
+            res["host_masks_ms"] = (time.perf_counter() - t0) * 1e3
+            up = dict(gate=bits[0], counted=bits[1], mq=arrays["mq"],
+                      qual=arrays["qual"], group_id=arrays["group_id"],
+                      group_sizes=arrays["group_sizes"])
+            t = {k: torch.from_numpy(v).to(dev) for k, v in up.items()}
+
+            def call():
+                return vc.classify_bits_packed_small(
+                    t["gate"], t["counted"], t["mq"], t["qual"],
+                    t["group_id"], t["group_sizes"], n_groups=G,
+                    n_samples=S, n_alleles=A, **small_kw)
+
+            present = mirror[:, 3 * G:].reshape(V, G, A) > 0
+            want = np.concatenate(
+                [mirror[:, :3 * G], (present << np.arange(A)).sum(axis=2)],
+                axis=1).astype(np.int16)
+        else:
+            up = arrays
+            t = {k: torch.from_numpy(v).to(dev) for k, v in up.items()}
+            want = mirror
+            if name == "classify_batch_packed":
+                def call():
+                    return vc.classify_batch_packed(n_groups=G, **t, **kw)
+            else:
+                def call():
+                    return vc.pack_outputs(
+                        vc.classify_batch(n_groups=G, **t, **kw), V)
+        reset_vcf_counts()
+        got = call().cpu().numpy()
+        check(vcf_counts()[name] == 1, f"vcf {name}: not counted once")
+        err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and err == 0, f"vcf {name}: differs from the numpy mirror")
+        check((want[:, G:3 * G] >= 0).any(), f"vcf {name}: no call made")
+        up_bytes = sum(v.nbytes for v in up.values())
+        res.update(max_abs_err=err, upload_bytes=up_bytes,
+                   pull_bytes=got.nbytes,
+                   ms=cuda_ms(call), busy_ms=busy_ms(call),
+                   bound_ms=bound_ms(up_bytes + got.nbytes),
+                   bound_by="bytes")
+        del t
+        torch.cuda.empty_cache()
+        results.append(res)
+        print(f"phase 12b vcf {name} {V} x {S} x {A}, {G} groups: exact vs "
+              f"the numpy mirror, {res['ms']:.3f} ms (busy "
+              f"{fmt(res['busy_ms'], '.3f')}), bound {res['bound_ms']:.4f} "
+              f"ms ({up_bytes} B up, {got.nbytes} B down); mirror "
+              f"{mirror_ms:.1f} ms on the host", flush=True)
+    return results
+
+
+def phase_vcf_full(dev, td: Path):
+    """12 c: ``tools/bench_vcf_scaled.py``'s protocol at its full size,
+    100,000 records x 100 samples, 4 groups, one contig, gzip VCF with
+    ``--index``: ``--engine device`` on CUDA (one run writes the index
+    sidecar, then best of 3 with the stage split, peak device memory and
+    batch counts, then one profiler-traced run for the card's busy share),
+    on the CPU once (equal bytes), and on a ``--pos`` slice of 10,000
+    records on CUDA, the CPU and the host engine (equal bytes)."""
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+    n_records, n_samples = VCF_SCALED
+    t0 = time.perf_counter()
+    meta, ref, vcf, planted, groups = synth_vcf_scaled(
+        td / "vcf_scaled", n_records, n_samples)
+    synth_s = time.perf_counter() - t0
+    out = Path(vcf).parent
+    side = out / "vars.idx"
+    base = [meta, ref, "--vcf", vcf, "--groups", *groups, "--min_samples",
+            "3", "--index", side]
+
+    def run(tag, flags=(), device="cuda"):
+        return _vcf_cli(base + [*flags, "--device", device, "--out_csv",
+                                out / f"{tag}.csv"])
+
+    res = dict(records=n_records, samples=n_samples, groups=len(groups),
+               planted=len(planted), synth_s=synth_s)
+    res["cold_s"] = run("cold", ["--engine", "device"])    # writes the index
+    check(side.exists(), "vcf: the index sidecar was not written")
+    METRICS.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_vcf_counts()
+    reset_launches()
+    times = [run(f"cuda{i}", ["--engine", "device"]) for i in range(3)]
+    res["launches"] = launch_counts()
+    res["batches"] = vcf_counts()
+    check(sum(res["batches"].values()) > 0,
+          "vcf 100k x 100: no classification batch ran on the card")
+    res.update(times_s=times, best_s=min(times),
+               variants_per_s=n_records / min(times),
+               stages_s={k: v.seconds / 3 for k, v in METRICS.stages.items()},
+               stage_calls={k: v.calls / 3 for k, v in METRICS.stages.items()},
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    cuda = (out / "cuda0.csv").read_bytes()
+    check(all((out / f"cuda{i}.csv").read_bytes() == cuda for i in (1, 2))
+          and (out / "cold.csv").read_bytes() == cuda,
+          "vcf 100k x 100: CUDA runs differ")
+    rows = cuda.count(b"\n") - 1
+    res["cpu_s"] = run("cpu", ["--engine", "device"], "cpu")
+    check((out / "cpu.csv").read_bytes() == cuda and rows > 0,
+          "vcf 100k x 100: CUDA and CPU bytes differ or no row")
+    res["cpu_variants_per_s"] = n_records / res["cpu_s"]
+    busy = busy_by_kernel(lambda: run("traced", ["--engine", "device"]),
+                          reps=1)[0]
+    res.update(busy_ms=busy, busy_share=None if busy is None
+               else busy / 1e3 / res["best_s"], rows=rows)
+    # the bench's slice: about 10,000 records (average gap 30)
+    pos = ["--pos", "1", str(VCF_SLICE_RECORDS * 30 + 50)]
+    res["slice_s"] = {tag: run(f"slice_{tag}", [*pos, "--engine", engine],
+                               device)
+                      for tag, engine, device in (
+                          ("device_cuda", "device", "cuda"),
+                          ("device_cpu", "device", "cpu"),
+                          ("host", "host", "cuda"))}
+    sl = {tag: (out / f"slice_{tag}.csv").read_bytes()
+          for tag in res["slice_s"]}
+    slice_rows = sl["host"].count(b"\n") - 1
+    check(len(set(sl.values())) == 1 and slice_rows > 0,
+          "vcf slice: CUDA, CPU and host engine bytes differ or no row")
+    res.update(slice_rows=slice_rows,
+               slice_records=VCF_SLICE_RECORDS)
+    print(f"phase 12c krisp_vcf {n_records} x {n_samples}, 4 groups "
+          f"(written in {synth_s:.1f} s, {len(planted)} planted): cold "
+          f"{res['cold_s']:.2f} s, runs {[round(x, 3) for x in times]} s, "
+          f"{res['variants_per_s']:,.0f} variants/s (best), {rows} rows; "
+          f"CPU {res['cpu_s']:.2f} s ({res['cpu_variants_per_s']:,.0f} "
+          f"variants/s), equal bytes; peak device memory "
+          f"{res['peak_bytes'] / 2**20:.1f} MiB; card busy "
+          f"{fmt(busy, '.1f')} ms a run"
+          + (f" ({100 * res['busy_share']:.2f}% of the best)"
+             if res["busy_share"] is not None else "")
+          + f"; batches {res['batches']}, kernel launches {res['launches']}",
+          flush=True)
+    print("phase 12c krisp_vcf stages (mean s per run): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["stages_s"].items()),
+          flush=True)
+    print(f"phase 12c krisp_vcf slice ({VCF_SLICE_RECORDS} records): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["slice_s"].items())
+          + f", equal bytes, {slice_rows} rows", flush=True)
+    shutil.rmtree(out)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1385,6 +1925,9 @@ def main():
         kstream = dict(small=phase_kstream_small(td, ks_files),
                        full=phase_kstream_full(dev, ks_files),
                        segmented=phase_kstream_segmented(td, ks_files))
+        vcf = dict(small=phase_vcf_small(td),
+                   classifier=phase_vcf_classifier(dev),
+                   full=phase_vcf_full(dev, td))
 
     main_pack = pack_res[0]
     main_scan = scan_res[0]
@@ -1398,6 +1941,7 @@ def main():
                     source=f"krisp_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
                     launches_per_run=launches / runs,
+                    vcf_launches=vcf["full"]["launches"][name],
                     max_abs_err=max(r["max_abs_err"] for r in results),
                     ms=main["ms"], busy_ms=main["busy_ms"],
                     plain_ms=main["plain_ms"],
@@ -1458,7 +2002,8 @@ def main():
         build_s=build_s, window_keys=pack_res, sort_words=sort_res,
         survivor_scan=scan_res, paths=paths, merge_sorted_words=merge_res,
         ab_merge_path=ab_res, out_of_core_small=ooc_small,
-        out_of_core_full=ooc_full, kstream=kstream, total_s=total_s)))
+        out_of_core_full=ooc_full, kstream=kstream, vcf=vcf,
+        total_s=total_s)))
     print(f"chip_smoke: {total_s:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

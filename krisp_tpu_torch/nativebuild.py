@@ -1,9 +1,10 @@
 """Shared on-demand builder for the port's C++ host helpers under
-``krisp_tpu_torch/csrc/host/`` (copies of krisp_tpu's ``csrc/fastaio.cpp``
-and ``csrc/thermochain.cpp``; each binary lands in the port's own
-``_native/`` folders, so the port never loads one the JAX package built).
+``krisp_tpu_torch/csrc/host/`` (copies of krisp_tpu's ``csrc/fastaio.cpp``,
+``csrc/thermochain.cpp``, ``csrc/kstreamcore.cpp`` and ``csrc/vcfio.cpp``;
+each binary lands in the port's own ``_native/`` folders, so the port never
+loads one the JAX package built).
 
-Each native bridge (io/native.py, thermo/chain.py) builds
+Each native bridge (io/native.py, io/native_vcf.py, thermo/chain.py) builds
 its library lazily at first use.  Staleness is keyed on a sha256 of the
 source stored beside the binary — NOT on mtimes, because a fresh git clone
 gives source and binary identical mtimes and would otherwise happily load a

@@ -33,6 +33,10 @@ def test_port_imports_without_jax():
             "import krisp_tpu_torch.kstream, krisp_tpu_torch.kstream_device\n"
             "import krisp_tpu_torch.kstream_vec, krisp_tpu_torch.kstream_fast\n"
             "import krisp_tpu_torch.cli.kstream, krisp_tpu_torch.cli.tools\n"
+            "import krisp_tpu_torch.cli.krisp_vcf, krisp_tpu_torch.ops.vcfclass\n"
+            "import krisp_tpu_torch.vcf.fastscan, krisp_tpu_torch.vcf.report\n"
+            "import krisp_tpu_torch.vcf.device_classify\n"
+            "import krisp_tpu_torch.vcf.resume, krisp_tpu_torch.vcf.scan\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'triton' not in sys.modules\n"
             "from krisp_tpu_torch.kernels import build\n"
@@ -181,3 +185,78 @@ def test_kstream_device_engine_default_raises_without_cuda(tmp_path):
                  "--engine", "host", "--output",
                  str(tmp_path / "host.txt")]) == 0
     assert (tmp_path / "host.txt").read_bytes().count(b"\n") == 320 - 27
+
+
+def test_vcf_cli_loads_no_krisp_tpu_module(tmp_path):
+    """The port's krisp_vcf on the CPU, on the device engine (columnar fast
+    scan and, for ``--vcf -``, the streaming route) and the host engine,
+    leaves no module of the JAX package loaded."""
+    from torch_vcf_inputs import synth_fuzz_diag_inputs
+    # one contig: a stream's windows may not span contigs (krisp_tpu raises)
+    meta, ref, vcf = synth_fuzz_diag_inputs(tmp_path, 2, contigs=("ctg1",))
+    plain = tmp_path / "vars.vcf"
+    import gzip
+    plain.write_bytes(gzip.open(vcf).read())
+    base = [meta, ref, "--groups", "EU1", "NA1", "--min_samples", "3",
+            "--device", "cpu"]
+    runs = [base + ["--vcf", vcf, "--engine", e, "--out_csv",
+                    str(tmp_path / f"{e}.csv")] for e in ("device", "host")]
+    code = ("import sys\n"
+            "from krisp_tpu_torch.cli.krisp_vcf import main\n"
+            f"for argv in {runs!r}:\n"
+            "    assert main(argv) == 0\n"
+            f"sys.stdin = open({str(plain)!r})\n"
+            f"assert main({base!r} + ['--engine', 'device', '--out_csv', "
+            f"{str(tmp_path / 'stdin.csv')!r}]) == 0\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'krisp_tpu' or m.startswith('krisp_tpu.'))\n"
+            "assert not bad, bad\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    device, host, stdin = ((tmp_path / f"{e}.csv").read_bytes()
+                           for e in ("device", "host", "stdin"))
+    assert device == host == stdin and device.count(b"\n") > 1
+
+
+def test_vcf_device_engine_default_raises_without_cuda(tmp_path):
+    """krisp_vcf's ``--device`` defaults to the card: without one the
+    device engine raises on both of its routes (the columnar fast scan
+    and ``--vcf -``) and never classifies on the CPU; the host engine
+    needs no card."""
+    from krisp_tpu_torch.cli.krisp_vcf import main
+    from torch_vcf_inputs import synth_fuzz_diag_inputs
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    meta, ref, vcf = synth_fuzz_diag_inputs(tmp_path, 2)
+    base = [meta, ref, "--vcf", vcf, "--groups", "EU1", "NA1",
+            "--out_csv", str(tmp_path / "out.csv")]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(base + ["--engine", "device"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(base + ["--engine", "device", "--device", "cuda"])
+    from krisp_tpu_torch.vcf.device_classify import classify_stream_device
+    from krisp_tpu_torch.vcf.parser import VcfReader
+    from krisp_tpu_torch.vcf.classify import parse_group_data
+    groups = parse_group_data(meta, groups=["EU1", "NA1"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        next(classify_stream_device(VcfReader(vcf), groups))
+    assert main(base + ["--engine", "host"]) == 0
+    assert (tmp_path / "out.csv").read_bytes().count(b"\n") > 1
+
+
+def test_vcf_dev_flag_is_devices():
+    """``--dev 2`` is krisp_tpu's ``--devices 2``, never the port's
+    ``--device``; ``--device`` is taken off before the copied parser."""
+    from krisp_tpu.cli import krisp_vcf as jcli
+    from krisp_tpu_torch.cli import krisp_vcf as tcli
+    from krisp_tpu_torch.device import split_device_flag
+    argv = ["meta.csv", "ref.fa", "--vcf", "v.vcf", "--dev", "2"]
+    device, rest = split_device_flag(argv + ["--device", "cpu"])
+    assert device == "cpu" and rest == argv
+    assert vars(tcli.parse_args(rest)) == vars(jcli.parse_args(argv))
+    assert tcli.parse_args(rest).devices == 2
+    assert split_device_flag(argv)[0] == "cuda"

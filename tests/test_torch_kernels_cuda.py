@@ -434,3 +434,71 @@ def test_kstream_device_engine_cuda_matches_cpu(dev, tmp_path, k, mode, soft):
     assert (pack.window_keys_both.launches, sort.sort_words.launches) == (
         launches[0] + 1, launches[1] + 1)
     assert outs["cuda"] == outs["cpu"] and outs["cpu"][0] > 1000
+
+
+@pytest.mark.parametrize("route,V", [("small", 32_768), ("full", 4096),
+                                     ("batch", 4096)])
+def test_vcf_classifiers_cuda_match_cpu(dev, route, V):
+    """The VCF classifier in torch ops on the card at the smoke's cohort
+    shapes (500 samples, 8 alleles, 4 groups) equals the numpy mirror the
+    CPU route runs, and counts one classification batch on the card."""
+    from krisp_tpu_torch.ops import vcfclass as vc
+    from torch_vcf_inputs import cohort_batch
+    G, S, A = 4, 500, 8
+    arrays = cohort_batch(V, V, S, A, G)
+    kw = dict(min_samples=3, min_reads=10, min_geno_qual=40, min_freq=0.1,
+              min_map_qual=30, min_var_qual=10, min_samp_prop=0.9)
+    want = vc.classify_batch_packed_numpy(n_groups=G, **arrays, **kw)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    if route == "small":
+        fn = vc.classify_bits_packed_small
+        gate, counted = vc.host_gate_counted_bits(
+            arrays["dp"], arrays["gq"], arrays["ad"], arrays["n_alleles"],
+            kw["min_reads"], kw["min_geno_qual"], kw["min_freq"])
+        before = fn.launches
+        got = fn(torch.from_numpy(gate).to(dev),
+                 torch.from_numpy(counted).to(dev), t["mq"], t["qual"],
+                 t["group_id"], t["group_sizes"], n_groups=G, n_samples=S,
+                 n_alleles=A, min_samples=3, min_map_qual=30,
+                 min_var_qual=10, min_samp_prop=0.9).cpu().numpy()
+        present = want[:, 3 * G:].reshape(V, G, A) > 0
+        want = np.concatenate(
+            [want[:, :3 * G], (present << np.arange(A)).sum(axis=2)],
+            axis=1).astype(np.int16)
+    elif route == "full":
+        fn = vc.classify_batch_packed
+        before = fn.launches
+        got = fn(n_groups=G, **t, **kw).cpu().numpy()
+    else:
+        fn = vc.classify_batch
+        before = fn.launches
+        got = vc.pack_outputs(fn(n_groups=G, **t, **kw), V).cpu().numpy()
+    assert fn.launches == before + 1
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, G:3 * G] >= 0).any()        # calls were made
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_vcf_cli_cuda_matches_cpu(dev, tmp_path, engine):
+    """``krisp_vcf`` on a fuzz-style two-contig VCF: the card's run writes
+    the ``--device cpu`` run's bytes; the device engine counts its
+    classification batches on the card, the host engine none."""
+    from krisp_tpu_torch.cli.krisp_vcf import main
+    from krisp_tpu_torch.ops import vcfclass as vc
+    from torch_vcf_inputs import synth_fuzz_diag_inputs
+    meta, ref, vcf = synth_fuzz_diag_inputs(tmp_path, 1)
+    counters = (vc.classify_batch, vc.classify_batch_packed,
+                vc.classify_bits_packed_small)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        before = sum(f.launches for f in counters)
+        assert main([meta, ref, "--vcf", vcf, "--groups", "EU1", "NA1",
+                     "--min_samples", "3", "--engine", engine, "--device", d,
+                     "--out_csv", str(tmp_path / f"{d}.csv"),
+                     "--out_align", str(tmp_path / f"{d}.txt")]) == 0
+        launched = sum(f.launches for f in counters) - before
+        assert launched == (0 if engine == "host" or d == "cpu" else 2)
+        outs[d] = ((tmp_path / f"{d}.csv").read_bytes(),
+                   (tmp_path / f"{d}.txt").read_bytes())
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"][0].count(b"\n") > 1
