@@ -69,10 +69,12 @@ raises and exits non-zero; nothing is caught):
      equal the planted answer;
  10. the out-of-core path at full size, 5 x 40 Mb spacer 25/1/2 (16 Mb
      chunks, the default 2 GiB passes), all through the CLI with equal CSV
-     bytes: fused (budget raised; one warm-up, 2 timed runs), staged as the
-     default budget routes it (1 run, no temporary table directory left),
-     ``--workdir`` cold (1 run) and warm (2 runs); the window-key, sort and
-     scan kernels must have launched in the staged runs;
+     bytes: fused as the card's default budget routes it (no global pass;
+     one warm-up, 2 timed runs), staged as krisp_tpu's budget routes it
+     (KRISP_TPU_HBM_BUDGET=8589934592 named; 1 run, no temporary table
+     directory left), ``--workdir`` cold (1 run) and warm (2 runs); the
+     window-key, sort and scan kernels must have launched in the staged
+     runs;
  11. kstream (``krisp_tpu_torch.cli.kstream`` and ``kstream_fast``) on one
      synthetic genome (``synth_kstream_genome``: random bases as
      ``synth_genomes`` draws them, 8 contigs, assembly gaps of N and
@@ -130,8 +132,8 @@ raises and exits non-zero; nothing is caught):
           single-device run's, and the window-key, sort, merge (n > 1: one
           shard has nothing to merge) and scan kernels launched; then
           phase 10's 5 x 40 Mb spacer on 4 shards once, timed, with peak
-          device memory, CSV bytes equal to phase 10's (run before phase 10's
-          genomes are removed);
+          device memory, CSV bytes equal to phase 10's; every run routed by
+          the card's default budget, its peak within 4 (n) shards' charge;
        b. kstream k 28 ``--canonicals`` on the 40 Mb genome over 4 shards
           (``kstream_device._run_sharded``): sha256 equal to phase 11 b's
           device engine;
@@ -145,6 +147,23 @@ raises and exits non-zero; nothing is caught):
           run without it, and a trace whose kernel events name the
           window-key, sort and scan kernels.
      Scaling across cards is not measured here: the machine has one.
+ 14. the device-memory routing (``krisp_tpu_torch/budget.py``) with
+     KRISP_TPU_HBM_BUDGET unset: the card's budget (free memory less the
+     reserve); for the spacer, amplicon and IUPAC layouts at 5 x 4, 16 and
+     40 Mb a ``run_pipeline`` routed fused by that budget whose peak device
+     memory is within ``fused_charge``, and the extraction's own peak
+     (``genome_key_tables``); the same for one spacer and one IUPAC genome
+     of 40 Mb (every row survives: the device part alone), and each again
+     in a new process whose card is filled but for the charge plus the
+     reserve, which must route fused and finish; the spacer at
+     5 x 100 Mb (about 1.0e9 rows, near the 2**31-row guard),
+     fused, its unfiltered groups equal to the planted answer; the routing
+     on synthetic sizes, nothing allocated: 5 x 40 Mb of each layout
+     fused, 600 Mb + 9 x 1 Mb and a table just past 2**31 rows staged (the
+     latter by the row guard alone), a bucket under it fused, and the
+     amplicon layout on both sides of the budget's edge; kstream's one-shot
+     stage on the 40 Mb genome at k 12, 28 and 100 in three modes within
+     its charge, and a sort past the row guard segmented.
 Then a ``details`` line with every measurement as JSON, one JSON line of
 per-kernel results (each with its least time ``bound_ms``: the bytes its
 inputs and outputs hold once, over the card's 3.35 TB/s), the
@@ -179,6 +198,9 @@ AB_N = 20_000_000
 #: kstream inputs: one genome (phase 11 b) and slices of it (a, c)
 KS_FULL, KS_SMALL, KS_SLICE, KS_SEG = 40_000_000, 1_000_000, 200_000, 2_000_000
 KS_SEG_BUDGET = 36_000_000
+#: krisp_tpu's KRISP_TPU_HBM_BUDGET default (8 GiB), named where a run
+#: takes the staged path as krisp_tpu routes it
+KRISP_TPU_BUDGET = 8589934592
 #: krisp_vcf inputs (phase 12): the fuzz-style VCF's seed and contig length
 #: (two contigs, about 2,100 records), the scaled bench's records and
 #: samples and its slice, the cohort batches (rows on the small pull, rows
@@ -923,8 +945,9 @@ def _tables_dirs():
 
 
 def phase_out_of_core_full(dev, td):
-    """5 x 40 Mb spacer through the CLI: fused, staged as the budget routes
-    it, ``--workdir`` cold and warm; equal CSV bytes everywhere."""
+    """5 x 40 Mb spacer through the CLI: fused as the card's default budget
+    routes it, staged as krisp_tpu's 8 GiB budget routes it, ``--workdir``
+    cold and warm; equal CSV bytes everywhere."""
     from krisp_tpu_torch.metrics import GLOBAL as METRICS
 
     t0 = time.perf_counter()
@@ -986,10 +1009,13 @@ def phase_out_of_core_full(dev, td):
         runs[kind] = res
         return res
 
-    run_kind("fused", 2, budget=1 << 40, warmup=True)
-    routed = run_kind("staged_routed", 1)
+    fused = run_kind("fused", 2, warmup=True)
+    check(fused["passes"] is None and "pull" in fused["stages_s"],
+          "out-of-core: the card's default budget did not route 5 x 40 Mb "
+          "fused")
+    routed = run_kind("staged_routed", 1, budget=KRISP_TPU_BUDGET)
     check(routed["passes"] and routed["passes"] >= 2,
-          f"out-of-core: the default budget did not route 5 x 40 Mb staged "
+          f"out-of-core: krisp_tpu's budget did not route 5 x 40 Mb staged "
           f"in several passes ({routed['passes']})")
     check(routed["tables_dirs_left"] == 0,
           "out-of-core: a krisp_tpu_tables_* directory was left behind")
@@ -1252,8 +1278,10 @@ def phase_kstream_full(dev, files, k100_runs=1):
     of 3, the card's busy time from a trace of one more device run) and
     k 100 complements under auto (best of ``k100_runs``; the k 28 runs
     warmed the engine up), with their invariants."""
+    from krisp_tpu_torch.budget import device_budget, kstream_window_bytes
     from krisp_tpu_torch.io.fasta import bucket_size, load_buffer
-    from krisp_tpu_torch.kstream_device import _run_stage, device_plan
+    from krisp_tpu_torch.kstream_device import (_run_stage, device_plan,
+                                                kstream_route)
     from krisp_tpu_torch import kstream_vec
     from krisp_tpu_torch.kstream_fast import run_fast_kstream
     from krisp_tpu_torch.metrics import GLOBAL as METRICS
@@ -1336,9 +1364,9 @@ def phase_kstream_full(dev, files, k100_runs=1):
     padded = np.zeros(bucket_size(buf.size), np.uint8)   # as the engine pads
     padded[:buf.size] = buf
     del buf
-    est = padded.size * 2 * ((2 * 100 + 31) // 32 + 1) * 4 * 3
-    check(est <= int(os.environ.get("KRISP_TPU_HBM_BUDGET", 8 << 30)),
-          "kstream k 100: est_bytes over the budget; not one shot")
+    est = padded.size * kstream_window_bytes(100, "complements", True)
+    check(kstream_route(padded.size, 100, "complements", device_budget(dev))
+          == "one_shot", "kstream k 100: not routed one shot")
     res = timed_runs("k100_complements_auto", k100, "auto", k100_runs,
                      warm=False)
     res["est_bytes"] = est
@@ -1929,13 +1957,24 @@ def _csv_bytes(groups):
         render.render_csv(g) + "\n" for g in groups)).encode()
 
 
+def _shard_charge(paths, geom, n):
+    """The bytes the routing charges one card for ``n`` virtual shards of
+    the search over ``paths``: n times a shard's charge."""
+    from krisp_tpu_torch.engine.pipeline import fused_charge
+    sizes, layout = _sizes_layout(paths, geom)
+    return n * fused_charge(sizes, layout, sum(geom), n)[1]
+
+
 def _sharded_run(dev, paths, geom, mesh, kernels, what):
-    """One ``run_pipeline`` over ``mesh`` without the ingroup filter, with
-    the launch counters zeroed just before and read just after: (groups,
-    wall s, launches, peak device bytes).  Every kernel of ``kernels``
-    must have launched."""
+    """One ``run_pipeline`` over ``mesh`` (routed by the card's default
+    budget) without the ingroup filter, with the launch counters zeroed
+    just before and read just after: (groups, wall s, launches, peak
+    device bytes above what was allocated before).  Every kernel of
+    ``kernels`` must have launched, and the peak must be within the
+    routing's charge."""
     from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -1943,9 +1982,12 @@ def _sharded_run(dev, paths, geom, mesh, kernels, what):
                           ingroup_filter=False, device=dev, mesh=mesh)
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
     check(all(launches[k] > 0 for k in kernels),
           f"{what}: a kernel of the sharded path never launched: {launches}")
-    return groups, dt, launches, torch.cuda.max_memory_allocated(dev)
+    charge = _shard_charge(paths, geom, mesh.size)
+    check(peak <= charge, f"{what}: peak {peak} B over the charge {charge} B")
+    return groups, dt, launches, peak
 
 
 def phase_sharded_intersection(dev, genomes):
@@ -1978,13 +2020,16 @@ def phase_sharded_intersection(dev, genomes):
                                           mesh=card_mesh(dev, n)))
             check(csv == one_csv,
                   f"sharded {name} n {n}: CSV bytes differ from one device's")
+            charge = _shard_charge(paths, geom, n)
             results[f"{name}_{n}"] = dict(
                 shards=n, wall_s=dt, launches=launches, peak_bytes=peak,
-                groups=len(one_groups), csv_rows=csv.count(b"\n") - 1)
+                charge_bytes=charge, groups=len(one_groups),
+                csv_rows=csv.count(b"\n") - 1)
             print(f"phase 13a sharded {name} 5 x 4 Mb on {n} virtual "
                   f"shard(s): groups and CSV == one device's, {dt:.3f} s, "
-                  f"peak device memory {peak / 2**20:.1f} MiB, launches "
-                  f"{launches}", flush=True)
+                  f"peak device memory {peak / 2**20:.1f} MiB (charge "
+                  f"{charge / 2**20:.1f} MiB), launches {launches}",
+                  flush=True)
     return results
 
 
@@ -1994,9 +2039,9 @@ def phase_sharded_full(dev, ooc_full):
     from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
     paths = ooc_full["paths"]
     mesh = card_mesh(dev, SHARD_FULL)
-    budget = _set_env(KRISP_TPU_HBM_BUDGET=1 << 40)   # the fused route
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -2004,20 +2049,23 @@ def phase_sharded_full(dev, ooc_full):
                           device=dev, mesh=mesh)
     dt = time.perf_counter() - t0
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    _set_env(**budget)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    charge = _shard_charge(paths, SPACER, SHARD_FULL)
     check(all(launches[k] > 0 for k in SHARDED_KERNELS),
-          f"sharded 5 x 40 Mb: a kernel never launched: {launches}")
+          f"sharded 5 x 40 Mb: a kernel never launched (the card's default "
+          f"budget must route it sharded): {launches}")
+    check(peak <= charge,
+          f"sharded 5 x 40 Mb: peak {peak} B over the charge {charge} B")
     sha = hashlib.sha256(_csv_bytes(groups)).hexdigest()
     check(sha == ooc_full["csv_sha256"],
           "sharded 5 x 40 Mb: CSV bytes differ from phase 10's")
     n_keys = N_FILES * 2 * (FULL - sum(SPACER) + 1)
     res = dict(shards=SHARD_FULL, wall_s=dt, kmers_per_s=n_keys / dt,
-               launches=launches, peak_bytes=peak)
+               launches=launches, peak_bytes=peak, charge_bytes=charge)
     print(f"phase 13a sharded spacer 5 x 40 Mb on {SHARD_FULL} virtual "
           f"shards: CSV == phase 10's, {dt:.3f} s, {n_keys / dt:,.0f} "
-          f"k-mers/s, peak device memory {peak / 2**20:.1f} MiB, launches "
-          f"{launches}", flush=True)
+          f"k-mers/s, peak device memory {peak / 2**20:.1f} MiB (charge "
+          f"{charge / 2**20:.1f} MiB), launches {launches}", flush=True)
     return res
 
 
@@ -2085,6 +2133,348 @@ def phase_sharded_vcf(dev):
                   flush=True)
             torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the device-memory budget and the routing's charges
+# ---------------------------------------------------------------------------
+
+#: the sizes each layout runs at (bases a genome, 5 genomes), and the
+#: spacer's run near the row guard
+BUDGET_SIZES = (LARGE, 16_000_000, FULL)
+NEAR_GUARD = 100_000_000
+#: the kstream stage's (k, mode) grid on the 40 Mb genome
+KS_BUDGET_GRID = ((12, "complements"), (28, "complements"), (28, "plain"),
+                  (28, "canonicals"), (100, "complements"),
+                  (100, "canonicals"))
+
+
+def _sizes_layout(paths, geom):
+    """(genome sizes, KeyLayout) of the search over ``paths``, as
+    ``run_pipeline`` reads them."""
+    from krisp_tpu_torch.engine.pipeline import detect_bits
+    from krisp_tpu_torch.io.fasta import load_buffer
+    from krisp_tpu_torch.ops.encode import KeyLayout
+    buffers = [load_buffer(p) for p in paths]
+    return ([b.size for b in buffers],
+            KeyLayout(*geom, detect_bits(buffers), len(paths)))
+
+
+#: the reserve, tried at the edge: a new process fills the card but for
+#: the charge of the search over ``paths`` plus ``reserve`` bytes
+#: (the least free memory the routing takes fused under that reserve),
+#: checks that the routing then takes the fused path and runs it: the
+#: whole ``run_pipeline``, or with ``device_only`` its device part (the
+#: table and the global stage, where every row survives and the host
+#: decode alone would take minutes).  Prints one JSON line.
+SQUEEZE_RUN = """
+import json, sys, torch
+from krisp_tpu_torch import budget
+from krisp_tpu_torch.engine.pipeline import (KmerGeometry, detect_bits,
+    fused_charge, genome_key_tables, run_pipeline, takes_fused)
+from krisp_tpu_torch.io.fasta import load_buffer
+from krisp_tpu_torch.ops.encode import KeyLayout
+from krisp_tpu_torch.ops.intersect import global_stage
+paths, geom, reserve, device_only = json.loads(sys.argv[1])
+dev = torch.device("cuda", 0)
+buffers = [load_buffer(p) for p in paths]
+sizes = [b.size for b in buffers]
+layout = KeyLayout(*geom, detect_bits(buffers), len(paths))
+del buffers
+rows, charge = fused_charge(sizes, layout, sum(geom))
+free0 = torch.cuda.mem_get_info(dev)[0]
+fill = (free0 - charge - reserve) // (2 << 20) * (2 << 20)
+filler = torch.empty(fill, dtype=torch.uint8, device=dev)
+free1 = torch.cuda.mem_get_info(dev)[0]
+card_budget = budget.budget_from(free1, reserve)
+fused = takes_fused(sizes, layout, sum(geom), card_budget)
+torch.cuda.reset_peak_memory_stats(dev)
+if device_only:   # the stage frees the table once sorted
+    out = global_stage([genome_key_tables(paths, KmerGeometry(*geom),
+                                          device=dev)[0]], layout, len(paths))
+else:
+    out = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom), device=dev)
+torch.cuda.synchronize()
+print(json.dumps(dict(
+    reserve_bytes=reserve, charge_bytes=charge, budget_bytes=card_budget,
+    fused=fused, free_bytes=free0, free_after_fill_bytes=free1,
+    peak_bytes=torch.cuda.max_memory_allocated(dev) - fill,
+    free_at_end_bytes=torch.cuda.mem_get_info(dev)[0])))
+"""
+
+
+def _squeeze_run(paths, geom, reserve, device_only=False):
+    """``SQUEEZE_RUN`` in a new process: its JSON line as a dict, or
+    {"error": the last line of its standard error}."""
+    out = subprocess.run([sys.executable, "-c", SQUEEZE_RUN, json.dumps(
+        [paths, list(geom), reserve, device_only])], capture_output=True,
+        text=True, cwd=Path(__file__).parent)
+    if out.returncode != 0:
+        return dict(error=(out.stderr.strip().splitlines() or ["?"])[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _measure_peak(dev, fn):
+    """(fn(), peak bytes above what was allocated before, the allocator's
+    cached bytes beyond its peak, device bytes taken outside the
+    allocator during the call)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    free0, res0 = torch.cuda.mem_get_info(dev)[0], torch.cuda.memory_reserved(
+        dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    gap = torch.cuda.max_memory_reserved(dev) - peak
+    outside = ((free0 - torch.cuda.mem_get_info(dev)[0])
+               - (torch.cuda.memory_reserved(dev) - res0))
+    return out, peak - base, gap, outside
+
+
+def phase_budget(dev, genomes, full_paths, td, ks_files):
+    """14: the card's budget (``budget.device_budget`` with
+    KRISP_TPU_HBM_BUDGET unset) and its reserve; for each layout at each
+    size of ``BUDGET_SIZES``, and for one genome at 40 Mb, a fused search
+    routed by that budget whose peak is within ``fused_charge`` and whose
+    table's extraction alone (``genome_key_tables``) gives the
+    extraction's bytes a genome row, for one genome also
+    ``SQUEEZE_RUN``; the spacer once at 5 x 100 Mb (about 1.0e9 rows), its
+    unfiltered groups equal to the planted answer; the routing on
+    synthetic sizes; and kstream's one-shot stage on the 40 Mb genome
+    against its charge."""
+    from krisp_tpu_torch import budget
+    from krisp_tpu_torch.engine.pipeline import (KmerGeometry, fused_charge,
+                                                 genome_key_tables,
+                                                 run_pipeline, takes_fused)
+    from krisp_tpu_torch.io.fasta import bucket_size, load_buffer
+    from krisp_tpu_torch.kstream_device import (_run_stage, device_plan,
+                                                kstream_route)
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+    from krisp_tpu_torch.ops.encode import KeyLayout
+    from krisp_tpu_torch.ops.intersect import global_stage
+
+    old = _set_env(KRISP_TPU_HBM_BUDGET=None)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+        dev)
+    card_budget = budget.device_budget(dev)
+    res = dict(free_bytes=free, total_bytes=total, budget_bytes=card_budget,
+               reserve_bytes=budget.CARD_RESERVE, runs=[], kstream=[])
+    print(f"phase 14 budget: {card_budget:,} B ({card_budget / 2**30:.2f} "
+          f"GiB) = free {free:,} B + cached {cached:,} B - reserve "
+          f"{budget.CARD_RESERVE:,} B; card total {total:,} B",
+          flush=True)
+    check(0 < card_budget < total, "budget: not within the card")
+
+    def fused_run(name, paths, geom, planted=None, squeeze=False):
+        """One search routed by the card's budget, its peak against its
+        charge.  One genome: every row survives, so the device part alone
+        (the table and the global stage; the host decode of every row
+        would take minutes), with the routing asked of ``takes_fused``."""
+        sizes, layout = _sizes_layout(paths, geom)
+        rows, charge = fused_charge(sizes, layout, sum(geom))
+        genome_rows = rows // len(paths)
+        g = KmerGeometry(*geom)
+        device_only = len(paths) == 1
+        METRICS.reset()
+        t0 = time.perf_counter()
+        if device_only:
+            check(takes_fused(sizes, layout, sum(geom),
+                              budget.device_budget(dev)),
+                  f"budget {name}: the default budget does not route it "
+                  "fused")
+            out, peak, gap, outside = _measure_peak(dev, lambda: global_stage(
+                [genome_key_tables(paths, g, device=dev)[0]], layout, 1))
+            survivors = out[2].numel()
+            del out
+        else:
+            groups, peak, gap, outside = _measure_peak(
+                dev, lambda: run_pipeline(paths[:2], paths[2:], g,
+                                          ingroup_filter=False, device=dev))
+            check("intersect" not in METRICS.stages
+                  and "pull" in METRICS.stages,
+                  f"budget {name}: the default budget did not route it "
+                  "fused")
+            survivors = METRICS.stages["pull"].items
+        dt = time.perf_counter() - t0
+        check(peak <= charge, f"budget {name}: peak {peak} B over the "
+              f"charge {charge} B")
+        if planted is not None:
+            want = _planted_groups(planted, geom)
+            check(_groups_as_dict(groups) == want,
+                  f"budget {name}: groups differ from the planted answer")
+        table_bytes = 4 * layout.n_words * rows
+        _, ext_peak, _, _ = _measure_peak(dev, lambda: genome_key_tables(
+            paths, g, device=dev)[0])
+        r = dict(name=name, files=len(paths), size=max(sizes), rows=rows,
+                 n_words=layout.n_words, bits=layout.bits, charge_bytes=charge,
+                 peak_bytes=peak, peak_row_bytes=peak / rows,
+                 charge_row_bytes=charge / rows, survivor_rows=survivors,
+                 cached_gap_bytes=gap, outside_bytes=outside,
+                 extract_peak_bytes=ext_peak,
+                 extract_genome_row_bytes=(ext_peak - table_bytes)
+                 / genome_rows, seconds=dt, device_only=device_only)
+        res["runs"].append(r)
+        print(f"phase 14 budget {name} ({len(paths)} x {max(sizes):,}, "
+              f"{layout.bits}-bit, {layout.n_words} words): {rows:,} rows, "
+              f"{survivors:,} survivors, peak {peak / 2**20:.1f} MiB "
+              f"({r['peak_row_bytes']:.2f} B a row) <= charge "
+              f"{charge / 2**20:.1f} MiB ({r['charge_row_bytes']:.2f}); "
+              f"extraction {ext_peak / 2**20:.1f} MiB "
+              f"({r['extract_genome_row_bytes']:.2f} B a genome row beside "
+              f"the table); allocator cache beyond the peak "
+              f"{gap / 2**20:.1f} MiB, outside it {outside / 2**20:.1f} MiB; "
+              f"{dt:.2f} s" + (" (device part)" if device_only else ""),
+              flush=True)
+        if squeeze:
+            torch.cuda.empty_cache()
+            sq = _squeeze_run(paths, geom, budget.CARD_RESERVE, device_only)
+            r["squeeze"] = sq
+            check("error" not in sq and sq["fused"], f"budget {name}: with "
+                  f"the charge plus the reserve free: {sq}")
+            if "error" not in sq:
+                room = sq["charge_bytes"] + sq["reserve_bytes"]
+                print(f"phase 14 budget {name} in a new process with "
+                      f"{room / 2**20:.1f} MiB free (charge + reserve): "
+                      f"routed fused, peak "
+                      f"{sq['peak_bytes'] / 2**20:.1f} MiB, "
+                      f"{sq['free_at_end_bytes'] / 2**20:.1f} MiB free at "
+                      "the end", flush=True)
+        return r
+
+    sets = {}
+    for name, geom, iupac in (("spacer", SPACER, False),
+                              ("amplicon", AMPLICON, False),
+                              ("iupac", SPACER, True)):
+        for size in BUDGET_SIZES:
+            if size == LARGE:
+                paths = genomes[name][1]
+            elif size == FULL and name == "spacer":
+                paths = full_paths
+            else:
+                paths = synth_genomes(td / f"budget_{name}_{size}", size,
+                                      geom, iupac)[0]
+            sets[name, size] = paths
+            fused_run(f"{name} 5 x {size // 10**6} Mb", paths, geom)
+    # every row a survivor: the peaks nearest their charges try the reserve
+    for name, geom in (("spacer", SPACER), ("iupac", SPACER)):
+        fused_run(f"{name} 1 x {FULL // 10**6} Mb", sets[name, FULL][:1],
+                  geom, squeeze=True)
+    for name in ("spacer", "amplicon", "iupac"):
+        for size in BUDGET_SIZES[1:]:
+            if (name, size) != ("spacer", FULL):
+                shutil.rmtree(td / f"budget_{name}_{size}")
+
+    near_paths, planted = synth_genomes(td / "budget_near_guard", NEAR_GUARD,
+                                        SPACER)
+    near = fused_run(f"spacer 5 x {NEAR_GUARD // 10**6} Mb", near_paths,
+                     SPACER, planted)
+    res["near_guard"] = near
+    shutil.rmtree(td / "budget_near_guard")
+
+    # the routing on synthetic sizes, nothing allocated
+    def layout_of(geom, bits, n):
+        return KeyLayout(*geom, bits, n)
+
+    decisions = {}
+    for name, geom, bits in (("spacer", SPACER, 2), ("amplicon", AMPLICON, 2),
+                             ("iupac", SPACER, 4)):
+        sizes = [FULL] * N_FILES
+        decisions[f"{name} 5 x 40 Mb"] = (
+            takes_fused(sizes, layout_of(geom, bits, N_FILES), sum(geom),
+                        card_budget), True)
+    uneven = [600_000_000] + [1_000_000] * 9
+    lay10 = layout_of(SPACER, 2, 10)
+    rows_uneven, charge_uneven = fused_charge(uneven, lay10, sum(SPACER))
+    decisions["spacer 600 Mb + 9 x 1 Mb"] = (
+        takes_fused(uneven, lay10, sum(SPACER), card_budget), False)
+    # the row guard alone: under a 1 PiB budget (as KRISP_TPU_HBM_BUDGET
+    # may name one), a table just past 2**31 rows is staged and one a
+    # bucket a genome smaller is fused
+    decisions["spacer 600 Mb + 9 x 1 Mb, 1 PiB budget"] = (
+        takes_fused(uneven, lay10, sum(SPACER), 1 << 50), False)
+    check(rows_uneven >= budget.ROW_LIMIT,
+          "budget: 600 Mb + 9 x 1 Mb under the row limit")
+    lay5 = layout_of(SPACER, 2, N_FILES)
+    guard = [-(-budget.ROW_LIMIT // (2 * N_FILES)) + sum(SPACER)] * N_FILES
+    rows_guard, charge_guard = fused_charge(guard, lay5, sum(SPACER))
+    decisions[f"spacer 5 x {guard[0]:,}, 1 PiB budget"] = (
+        takes_fused(guard, lay5, sum(SPACER), 1 << 50), False)
+    check(rows_guard >= budget.ROW_LIMIT,
+          "budget: the row-guard case is under the row limit")
+    under = [guard[0] - (1 << 16)] * N_FILES
+    decisions[f"spacer 5 x {under[0]:,}, 1 PiB budget"] = (
+        takes_fused(under, lay5, sum(SPACER), 1 << 50), True)
+    # just past the budget: the amplicon layout, a bucket at a time
+    lay_a = layout_of(AMPLICON, 2, N_FILES)
+    size = 1 << 16
+    while fused_charge([size * 2] * N_FILES, lay_a, sum(AMPLICON))[1] \
+            <= card_budget:
+        size *= 2
+    lo, hi = size, size * 2   # fits at lo, not at hi
+    while hi - lo > 1 << 16:
+        mid = (lo + hi) // 2 // (1 << 16) * (1 << 16)
+        if fused_charge([mid] * N_FILES, lay_a, sum(AMPLICON))[1] \
+                <= card_budget:
+            lo = mid
+        else:
+            hi = mid
+    for sz, want in ((lo, True), (hi, False)):
+        decisions[f"amplicon 5 x {sz:,} (budget edge)"] = (
+            takes_fused([sz] * N_FILES, lay_a, sum(AMPLICON), card_budget),
+            want)
+    for what, (got, want) in decisions.items():
+        print(f"phase 14 budget routing {what}: "
+              f"{'fused' if got else 'staged'}", flush=True)
+        check(got == want, f"budget routing {what}: "
+              f"{'fused' if got else 'staged'}, want "
+              f"{'fused' if want else 'staged'}")
+    res["routing"] = {k: v[0] for k, v in decisions.items()}
+    res["uneven"] = dict(rows=rows_uneven, charge_bytes=charge_uneven,
+                         windows_summed=2 * sum(bucket_size(s)
+                                                for s in uneven))
+    res["row_guard"] = dict(rows=rows_guard, charge_bytes=charge_guard)
+    res["budget_edge_sizes"] = [lo, hi]
+    print(f"phase 14 budget: 600 Mb + 9 x 1 Mb allocates {rows_uneven:,} "
+          f"rows (charged {charge_uneven / 1e9:.1f} GB; the sum of its "
+          f"buckets is {res['uneven']['windows_summed']:,} windows); the "
+          f"row-guard case {rows_guard:,} rows charged "
+          f"{charge_guard / 1e9:.1f} GB", flush=True)
+
+    # kstream's one-shot stage against its charge
+    buf = load_buffer(str(ks_files["40mb_upper"]))
+    padded = np.zeros(bucket_size(buf.size), np.uint8)
+    padded[:buf.size] = buf
+    del buf
+    for k, mode in KS_BUDGET_GRID:
+        plan = device_plan(kmers=k, disallow="Nn", sort=True,
+                           complements=mode == "complements",
+                           canonicals=mode == "canonicals")
+        est = padded.size * budget.kstream_window_bytes(k, mode, True)
+        old_est = padded.size * budget.kstream_window_bytes(k, mode, False)
+        check(kstream_route(padded.size, k, mode, card_budget) == "one_shot",
+              f"budget kstream k {k} {mode}: not routed one shot")
+        _, peak, gap, _ = _measure_peak(dev, lambda: _run_stage(padded, plan,
+                                                                dev))
+        check(peak <= est, f"budget kstream k {k} {mode}: peak {peak} B "
+              f"over the charge {est} B")
+        res["kstream"].append(dict(k=k, mode=mode, windows=padded.size,
+                                   peak_bytes=peak, charge_bytes=est,
+                                   krisp_tpu_estimate_bytes=old_est,
+                                   cached_gap_bytes=gap))
+        print(f"phase 14 budget kstream 40 Mb k {k} {mode}: peak "
+              f"{peak / 2**20:.1f} MiB ({peak / padded.size:.2f} B a window) "
+              f"<= charge {est / 2**20:.1f} MiB (krisp_tpu's estimate "
+              f"{old_est / 2**20:.1f} MiB)", flush=True)
+    seg = kstream_route(1_100_000_000, 28, "complements", 1 << 50)
+    check(seg == "segmented", f"budget kstream: 2.2e9 rows routed {seg}")
+    print("phase 14 budget kstream: 1.1e9 window starts with complements "
+          "(2.2e9 rows) under a 1 PiB budget: segmented", flush=True)
+    _set_env(**old)
+    return res
 
 
 def _free_port():
@@ -2234,8 +2624,6 @@ def main():
         ooc_full = phase_out_of_core_full(dev, td)
         sharded = dict(intersection=phase_sharded_intersection(dev, genomes),
                        full=phase_sharded_full(dev, ooc_full))
-        ooc_full.pop("paths")
-        shutil.rmtree(td / "spacer_40mb")
         ks_files = kstream_inputs(td)
         kstream = dict(small=phase_kstream_small(td, ks_files),
                        full=phase_kstream_full(dev, ks_files),
@@ -2250,6 +2638,8 @@ def main():
             vcf=phase_sharded_vcf(dev),
             nccl=phase_nccl(dev, genomes, ks_files),
             profile_dir=phase_profile_dir(dev, genomes, td))
+        budget_res = phase_budget(dev, genomes, ooc_full.pop("paths"), td,
+                                  ks_files)
 
     main_pack = pack_res[0]
     main_scan = scan_res[0]
@@ -2333,7 +2723,7 @@ def main():
         survivor_scan=scan_res, paths=paths, merge_sorted_words=merge_res,
         ab_merge_path=ab_res, out_of_core_small=ooc_small,
         out_of_core_full=ooc_full, kstream=kstream, vcf=vcf,
-        sharded=sharded, total_s=total_s)))
+        sharded=sharded, budget=budget_res, total_s=total_s)))
     print(f"chip_smoke: {total_s:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -29,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from ..budget import ROW_LIMIT
 from ..convert import keys_to_numpy
 from ..device import resolve_device
 from ..metrics import GLOBAL as METRICS
@@ -124,6 +125,10 @@ def partitioned_global_intersect(parts, layout, n_files: int,
     W = layout.n_words
     if row_budget is None:
         row_budget = row_budget_for(layout)
+    # a pass's sort takes fewer rows than the kernels' limit (a prefix
+    # bucket fuller than that still makes one pass, which the kernel
+    # refuses)
+    row_budget = min(row_budget, ROW_LIMIT - 1)
     total = sum(p[0].shape[1] for p in parts)
     if total == 0:
         return _empty(W)

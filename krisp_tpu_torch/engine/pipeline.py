@@ -13,9 +13,11 @@ compaction; wide keys (more than 2 words and a flank of 32 bits or more)
 first pass the one-word prefix prefilter and run that stage on the rows it
 keeps.
 
-Staged (out-of-core) path, taken with a ``workdir`` or past the
-device-memory budget (``KRISP_TPU_HBM_BUDGET``, read at call time, default
-8 GiB, against 56 bytes a window as krisp_tpu estimates it):
+Staged (out-of-core) path, taken with a ``workdir`` or where the fused
+path does not fit (``_takes_fused``: on a card its table must hold fewer
+rows than the kernels take and its peak, ``fused_charge``, must fit the
+card's budget, ``budget.device_budget``; on the CPU krisp_tpu's rule, 56
+bytes a window against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB):
 
   per genome, chunks of ``KRISP_TPU_CHUNK_BASES`` window starts (default
   64 Mb): upload the bytes, window keys, sort, duplicate collapse, pull ->
@@ -46,12 +48,15 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import dna
+from ..budget import (ROW_LIMIT, device_budget, fits, fused_bytes,
+                      shard_bytes)
 from ..convert import keys_from_numpy, keys_to_numpy
 from ..device import devices_for_run, resolve_device
 from ..io.fasta import bucket_size, load_buffer, simple_name
@@ -59,7 +64,7 @@ from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
 from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
                              extract_keys_ascii, extract_keys_packed_in,
-                             global_stage)
+                             global_stage, prefilter_gate)
 from ..ops.scan import valid_rows
 from ..ops.sort import sort_words
 from .bigscale import partitioned_global_intersect
@@ -136,13 +141,65 @@ def _encoding_tables(bits: int, omit_soft: bool):
     return code_table, valid_table, comp_table
 
 
-def over_budget(buffers) -> bool:
-    """krisp_tpu's device-memory guard: the fused path holds every
-    genome's window table at once, about 56 bytes a window during the sort;
-    past ``KRISP_TPU_HBM_BUDGET`` bytes (read now, default 8 GiB) the input
-    takes the staged path."""
-    budget = int(os.environ.get("KRISP_TPU_HBM_BUDGET", 8 << 30))
-    return 56 * 2 * sum(bucket_size(b.size) for b in buffers) > budget
+#: krisp_tpu's charge for the fused path: 56 bytes a window of each
+#: genome's own bucket, both strands (the port's routing on the CPU)
+KRISP_TPU_WINDOW_BYTES = 56
+
+
+def _shard_chunk(sizes, L: int, n_shards: int) -> int:
+    """krisp_tpu's slice of a genome a shard: the largest genome over the
+    shard count, at least the window, rounded up to 1024."""
+    chunk = max(-(-max(sizes) // n_shards), L)
+    return -(-chunk // 1024) * 1024
+
+
+def fused_charge(sizes, layout: KeyLayout, L: int,
+                 n_shards: int | None = None):
+    """(rows, bytes) of the fused search over genomes of ``sizes`` bases
+    at window length ``L``.  One device (``n_shards`` None): the rows of
+    the table as ``_fused_table`` allocates them (every genome padded to
+    the largest one's bucket, both strands) and the device's peak
+    (``budget.fused_bytes``).  A mesh of ``n_shards`` shards: the rows of
+    every shard's table together as ``_sharded`` allocates them (every
+    genome padded to ``n_shards`` slices) and one shard's peak
+    (``budget.shard_bytes``).  Nothing is allocated."""
+    n_files = len(sizes)
+    if n_shards is None:
+        genome_rows = 2 * max(bucket_size(max(sizes)) - L + 1, 0)
+        rows = n_files * genome_rows
+        return rows, fused_bytes(layout, rows, genome_rows,
+                                 prefilter_gate(layout))
+    genome_rows = 2 * _shard_chunk(sizes, L, n_shards)
+    rows = n_files * genome_rows
+    return rows * n_shards, shard_bytes(layout, rows, genome_rows)
+
+
+def takes_fused(sizes, layout: KeyLayout, L: int, budget: int,
+                n_shards: int | None = None,
+                shards_a_device: int = 1) -> bool:
+    """The card's routing on sizes alone (``fused_charge``'s arguments):
+    the fused search runs when its table holds fewer than
+    ``budget.ROW_LIMIT`` rows (all shards together: one owner may receive
+    every row) and the peak of ``shards_a_device`` shards fits ``budget``
+    bytes; else the staged path runs."""
+    rows, charge = fused_charge(sizes, layout, L, n_shards)
+    return fits(rows, charge * shards_a_device, budget)
+
+
+def _takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh) -> bool:
+    """``run_pipeline``'s fused-or-staged decision.  On a card
+    ``takes_fused`` against the budget of each device the run uses; on the
+    CPU krisp_tpu's rule (``KRISP_TPU_WINDOW_BYTES`` a window of each
+    genome's own bucket against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB),
+    so that CPU runs route as krisp_tpu's do."""
+    if dev.type != "cuda":
+        est = KRISP_TPU_WINDOW_BYTES * 2 * sum(bucket_size(s) for s in sizes)
+        return est <= device_budget(dev)
+    if mesh is None:
+        return takes_fused(sizes, layout, L, device_budget(dev))
+    per_device = Counter(d for _, d in mesh.local)
+    return all(takes_fused(sizes, layout, L, device_budget(d), mesh.size, k)
+               for d, k in per_device.items())
 
 
 def _stack(buffers) -> np.ndarray:
@@ -294,6 +351,8 @@ def _cached_parts(paths, geom: KmerGeometry, bits: int, omit_soft: bool,
     dev = resolve_device(device)
     if chunk_size is None:
         chunk_size = int(os.environ.get("KRISP_TPU_CHUNK_BASES", 64 << 20))
+    # a chunk's sort takes both strands' rows: fewer than the kernels' limit
+    chunk_size = min(chunk_size, (ROW_LIMIT - 1) // 2)
     n_files = len(paths)
     fword, fshift = layout.file_word_shift()
     cache = TableCache(workdir)
@@ -352,9 +411,10 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
     ``krisp_tpu.engine.pipeline.run_pipeline``'s.  ``ingroup_filter``
     defaults to the reference's gate: filter iff there is a diagnostic
     region and an outgroup.  ``workdir`` (a table cache to resume from) or
-    an input past the device-memory budget takes the staged path; past the
-    budget without ``workdir`` the tables go to a temporary directory that
-    is removed when the run ends.  ``n_devices`` (default
+    an input that the fused path does not fit (``_takes_fused``) takes the
+    staged path; without ``workdir`` the tables then go to a temporary
+    directory that is removed when the run ends.  A device error raises:
+    no route is retried on another.  ``n_devices`` (default
     ``KRISP_TPU_DEVICES``, else all) is clamped to the devices present, as
     krisp_tpu clamps it; over several devices the fused path is sharded
     (``_mesh_for_run``).  ``mesh`` (a ``parallel.distributed.Mesh``) shards
@@ -376,12 +436,15 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
     layout = KeyLayout(geom.left, geom.mid, geom.right, detect_bits(buffers),
                        n_files)
     tmp_workdir = None
-    if workdir is None and over_budget(buffers):
-        workdir = tmp_workdir = tempfile.mkdtemp(prefix="krisp_tpu_tables_")
-
     if workdir is None:
         if mesh is None:
             mesh = _mesh_for_run(layout, n_dev)
+        if not _takes_fused([b.size for b in buffers], layout, geom.total,
+                            dev, mesh):
+            workdir = tmp_workdir = tempfile.mkdtemp(
+                prefix="krisp_tpu_tables_")
+
+    if workdir is None:
         if mesh is not None:
             return _decode_and_group(*_sharded(buffers, layout, geom,
                                                omit_soft, mesh),
@@ -422,8 +485,7 @@ def _sharded(buffers, layout: KeyLayout, geom: KmerGeometry,
     counts, gid) rows."""
     from ..parallel.distributed import sharded_intersect_pipeline
     n_sh = mesh.size
-    chunk = max(-(-max(b.size for b in buffers) // n_sh), geom.total)
-    chunk = -(-chunk // 1024) * 1024
+    chunk = _shard_chunk([b.size for b in buffers], geom.total, n_sh)
     stacked = np.zeros((len(buffers), n_sh * chunk), np.uint8)
     for i, buf in enumerate(buffers):
         stacked[i, :buf.size] = buf

@@ -38,6 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .budget import (ROW_LIMIT, device_budget, kstream_rows,
+                     kstream_window_bytes)
 from .convert import keys_to_numpy
 from .device import devices_for_run, resolve_device
 from .io.fasta import bucket_size, load_buffer
@@ -152,9 +154,10 @@ def run_device_kstream(path, plan: DevicePlan, out_stream, device="cuda"):
     ``out_stream`` (binary).  Returns line count, or None when the plan
     is host-only or the input content forces a fallback to the host
     pipeline (IUPAC residues, RNA, lowercase without a softmask policy).
-    Over several devices, where one device's share of the job fits
-    ``KRISP_TPU_HBM_BUDGET``, the job is sharded (``_run_sharded``); other
-    jobs past the budget take the segmented path.  A device out-of-memory
+    ``kstream_route`` picks the path from sizes alone, against
+    ``budget.device_budget``: over several devices, where one device's
+    share of the job fits, the job is sharded (``_run_sharded``); other
+    jobs that do not fit take the segmented path.  A device out-of-memory
     error raises on every path (krisp_tpu hands the job to its
     single-device paths or the string pipeline instead, which would move
     work off the cards unseen).
@@ -175,23 +178,17 @@ def run_device_kstream(path, plan: DevicePlan, out_stream, device="cuda"):
     padded = np.zeros(bucket_size(buf.size), np.uint8)
     padded[:buf.size] = buf
 
-    # krisp_tpu's device-memory guard, read at call time: the one-shot
-    # stage holds the full window table (fwd+rc rows x key words +
-    # counts, double-buffered through the sort).  Past the budget, the
-    # segmented path: device-sorted unique runs spilled to disk, merged on
-    # the host.
-    _w = (2 * k + 31) // 32
-    est_bytes = int(padded.size) * 2 * (_w + 1) * 4 * 3
-    budget = int(os.environ.get("KRISP_TPU_HBM_BUDGET", 8 << 30))
-
+    budget = device_budget(dev)
+    card = dev.type == "cuda"
     n_dev = devices_for_run(None, dev)
-    if n_dev > 1 and est_bytes // n_dev <= budget:
+    route = kstream_route(padded.size, k, plan.mode, budget, n_dev, card)
+    if route == "sharded":
         from .parallel import distributed
         n = _run_sharded(buf, plan, out_stream, distributed.make_mesh(n_dev))
         if n is not None:
             return n
-
-    if est_bytes > budget:
+        route = kstream_route(padded.size, k, plan.mode, budget, 1, card)
+    if route == "segmented":
         return _run_segmented(buf, plan, out_stream, budget, dev)
 
     words_h, reps, n_unique = _run_stage(padded, plan, dev)
@@ -208,6 +205,41 @@ def run_device_kstream(path, plan: DevicePlan, out_stream, device="cuda"):
             f"{name} {s.seconds:.3f}s" for name, s in METRICS.stages.items()),
             file=sys.stderr)
     return int(reps.sum())
+
+
+def kstream_route(n_padded: int, k: int, mode: str, budget: int,
+                  n_dev: int = 1, card: bool = True) -> str:
+    """The device engine's path for ``n_padded`` window starts at k-mer
+    length ``k`` in ``mode``: "sharded" over ``n_dev`` > 1 devices where a
+    device's share of the charge fits ``budget``, "segmented" where the
+    one-shot stage's charge does not fit, else "one_shot".  The charge is
+    ``budget.kstream_window_bytes`` a window start (the stage holds the
+    whole window table: key words and counts through the sort and the
+    duplicate collapse).  On a card (``card``) a sort of
+    ``budget.ROW_LIMIT`` rows or more, which the kernel refuses, is
+    segmented too, and so never sharded, since one owner may receive every
+    row; on the CPU the rule is krisp_tpu's."""
+    est = n_padded * kstream_window_bytes(k, mode, card)
+    rows_ok = not card or kstream_rows(n_padded, mode) < ROW_LIMIT
+    if n_dev > 1 and est // n_dev <= budget and rows_ok:
+        return "sharded"
+    if est > budget or not rows_ok:
+        return "segmented"
+    return "one_shot"
+
+
+def segment_starts(budget: int, k: int, mode: str, card: bool) -> int:
+    """Window starts a segment of ``_run_segmented`` owns: as many as
+    ``budget`` bytes are charged for (``budget.kstream_window_bytes``), at
+    least max(k, 4096); on a card (``card``) few enough that a segment's
+    rows, its bucket's rounding included, stay under the kernels'
+    ``budget.ROW_LIMIT``."""
+    S = max(int(budget) // kstream_window_bytes(k, mode, card),
+            max(k, 4096))
+    if card:
+        S = min(S, (ROW_LIMIT - 1) // kstream_rows(1, mode) - (k - 1)
+                - (1 << 16))
+    return S
 
 
 def _embed_params(k, bits):
@@ -384,8 +416,10 @@ def _run_sharded(buf, plan: DevicePlan, out_stream, mesh):
 
 
 def _run_segmented(buf, plan: DevicePlan, out_stream, budget, device="cuda"):
-    """Inputs past the device-memory budget: fixed-size segments (k-1
-    overlap for window context) each sorted/deduped on ``device``, unique
+    """Inputs the one-shot stage does not fit (``kstream_route``):
+    fixed-size segments (as many window starts as ``budget`` bytes are
+    charged for; on a card fewer rows than the kernels take; k-1 overlap
+    for window context) each sorted/deduped on ``device``, unique
     (k-mer, count) runs spilled to disk, then one host merge summing counts
     of k-mers that recur across segments.  Byte-identical to the one-shot
     path."""
@@ -395,10 +429,7 @@ def _run_segmented(buf, plan: DevicePlan, out_stream, budget, device="cuda"):
 
     dev = resolve_device(device)
     k = plan.k
-    bits = 2
-    n_words = (bits * k + 31) // 32
-    per_window = 2 * (n_words + 1) * 4 * 3
-    S = max(int(budget) // per_window, max(k, 4096))
+    S = segment_starts(budget, k, plan.mode, dev.type == "cuda")
     if buf.size <= S:                    # only one segment: not actually
         S = buf.size                     # over budget; still correct
     P = bucket_size(S + k - 1)

@@ -180,6 +180,12 @@ def prefilter_rows(flat: torch.Tensor, layout: KeyLayout,
     return kept
 
 
+def prefilter_gate(layout: KeyLayout) -> bool:
+    """krisp_tpu's gate for the prefilter: wide keys (more than 2 words)
+    whose first word is all flank."""
+    return layout.n_words > 2 and layout.flank_bits >= 32
+
+
 def global_stage(table: list, layout: KeyLayout, n_files: int,
                  prefilter: bool | None = None):
     """The global stage over sentinel-marked keys: [prefilter ->] sort ->
@@ -198,7 +204,7 @@ def global_stage(table: list, layout: KeyLayout, n_files: int,
     flat = table.pop()
     dev = flat.device
     if prefilter is None:
-        prefilter = layout.n_words > 2 and layout.flank_bits >= 32
+        prefilter = prefilter_gate(layout)
     n_pre = flat.shape[1]
     if prefilter:
         with METRICS.stage("prefilter", items=n_pre, device=dev):

@@ -579,3 +579,32 @@ def test_measure_device_rate_on_the_card(dev, tmp_path):
     rate = measure_device_rate(paths[:2], paths[2:], KmerGeometry(25, 1, 2),
                                reps=3, device=dev)
     assert np.isfinite(rate) and rate > 0
+
+
+def test_default_budget_on_the_card(dev, monkeypatch):
+    """With KRISP_TPU_HBM_BUDGET unset the budget is the card's own:
+    positive and below its total memory."""
+    from krisp_tpu_torch.budget import device_budget
+    monkeypatch.delenv("KRISP_TPU_HBM_BUDGET", raising=False)
+    budget = device_budget(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    assert 0 < budget < total
+    assert budget <= free + torch.cuda.memory_reserved(dev)
+
+
+def test_default_budget_routes_5_x_1_mb_fused(dev, tmp_path, monkeypatch):
+    """5 x 1 Mb takes the fused path with no environment variable set."""
+    from krisp_tpu_torch.engine.pipeline import KmerGeometry, run_pipeline
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+    monkeypatch.delenv("KRISP_TPU_HBM_BUDGET", raising=False)
+    rng = np.random.default_rng(3)
+    paths = []
+    for f in range(5):
+        p = tmp_path / f"g{f}.fasta"
+        p.write_text(">g\n" + "".join(rng.choice(list("ACGT"), 1_000_000))
+                     + "\n")
+        paths.append(str(p))
+    METRICS.reset()
+    run_pipeline(paths[:2], paths[2:], KmerGeometry(25, 1, 2), device=dev)
+    assert "pull" in METRICS.stages
+    assert "intersect" not in METRICS.stages
