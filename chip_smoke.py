@@ -153,9 +153,13 @@ raises and exits non-zero; nothing is caught):
      40 Mb a ``run_pipeline`` routed fused by that budget whose peak device
      memory is within ``fused_charge``, and the extraction's own peak
      (``genome_key_tables``); the same for one spacer and one IUPAC genome
-     of 40 Mb (every row survives: the device part alone), and each again
-     in a new process whose card is filled but for the charge plus the
-     reserve, which must route fused and finish; the spacer at
+     of 40 Mb (every row survives: the device part alone); the reserve:
+     each of those two, a whole ``run_pipeline`` of the amplicon layout at
+     5 x 4 Mb and of the spacer at 5 x 40 Mb, the amplicon layout at
+     5 x 4 Mb on 4 virtual shards and kstream's stage at 40 Mb, k 28
+     complements, each in a new process whose card is filled but for its
+     charge plus the reserve, which must route it to the one-device route
+     and finish; the spacer at
      5 x 100 Mb (about 1.0e9 rows, near the 2**31-row guard),
      fused, its unfiltered groups equal to the planted answer; the routing
      on synthetic sizes, nothing allocated: 5 x 40 Mb of each layout
@@ -1278,7 +1282,7 @@ def phase_kstream_full(dev, files, k100_runs=1):
     of 3, the card's busy time from a trace of one more device run) and
     k 100 complements under auto (best of ``k100_runs``; the k 28 runs
     warmed the engine up), with their invariants."""
-    from krisp_tpu_torch.budget import device_budget, kstream_window_bytes
+    from krisp_tpu_torch.budget import device_budget, kstream_card_bytes
     from krisp_tpu_torch.io.fasta import bucket_size, load_buffer
     from krisp_tpu_torch.kstream_device import (_run_stage, device_plan,
                                                 kstream_route)
@@ -1364,7 +1368,7 @@ def phase_kstream_full(dev, files, k100_runs=1):
     padded = np.zeros(bucket_size(buf.size), np.uint8)   # as the engine pads
     padded[:buf.size] = buf
     del buf
-    est = padded.size * kstream_window_bytes(100, "complements", True)
+    est = padded.size * kstream_card_bytes(100, "complements")
     check(kstream_route(padded.size, 100, "complements", device_budget(dev))
           == "one_shot", "kstream k 100: not routed one shot")
     res = timed_runs("k100_complements_auto", k100, "auto", k100_runs,
@@ -2161,57 +2165,113 @@ def _sizes_layout(paths, geom):
 
 
 #: the reserve, tried at the edge: a new process fills the card but for
-#: the charge of the search over ``paths`` plus ``reserve`` bytes
-#: (the least free memory the routing takes fused under that reserve),
-#: checks that the routing then takes the fused path and runs it: the
-#: whole ``run_pipeline``, or with ``device_only`` its device part (the
-#: table and the global stage, where every row survives and the host
-#: decode alone would take minutes).  Prints one JSON line.
+#: the charge of one run plus ``reserve`` bytes (the least free memory
+#: under which the routing takes the one-device route), asks the routing
+#: (``takes_fused``, ``kstream_route``) with the card's own budget
+#: (``device_budget``, KRISP_TPU_HBM_BUDGET unset), which then reads what
+#: the fill left, and runs it.  ``kind``: "device", the fused search's
+#: device part (the table and the global stage, where every row survives
+#: and the host decode alone would take minutes); "pipeline", the whole
+#: ``run_pipeline``, which routes itself; "sharded", ``run_pipeline`` over
+#: ``n`` virtual shards of the card; "kstream", kstream's one-shot stage
+#: at (k, mode) on the genome ``paths[0]``.  Prints one JSON line.
 SQUEEZE_RUN = """
-import json, sys, torch
+import json, os, sys, torch
+import numpy as np
+os.environ.pop("KRISP_TPU_HBM_BUDGET", None)
 from krisp_tpu_torch import budget
 from krisp_tpu_torch.engine.pipeline import (KmerGeometry, detect_bits,
     fused_charge, genome_key_tables, run_pipeline, takes_fused)
-from krisp_tpu_torch.io.fasta import load_buffer
+from krisp_tpu_torch.io.fasta import bucket_size, load_buffer
+from krisp_tpu_torch.kstream_device import (_run_stage, device_plan,
+    kstream_route)
+from krisp_tpu_torch.metrics import GLOBAL as METRICS
 from krisp_tpu_torch.ops.encode import KeyLayout
 from krisp_tpu_torch.ops.intersect import global_stage
-paths, geom, reserve, device_only = json.loads(sys.argv[1])
+from krisp_tpu_torch.parallel.distributed import make_mesh
+paths, geom, reserve, kind, n = json.loads(sys.argv[1])
 dev = torch.device("cuda", 0)
 buffers = [load_buffer(p) for p in paths]
-sizes = [b.size for b in buffers]
-layout = KeyLayout(*geom, detect_bits(buffers), len(paths))
+if kind == "kstream":
+    k, mode = geom
+    padded = np.zeros(bucket_size(buffers[0].size), np.uint8)
+    padded[:buffers[0].size] = buffers[0]
+    charge = padded.size * budget.kstream_card_bytes(k, mode)
+else:
+    sizes = [b.size for b in buffers]
+    layout = KeyLayout(*geom, detect_bits(buffers), len(paths))
+    L = sum(geom)
+    mesh = make_mesh(devices=[dev] * n) if kind == "sharded" else None
+    charge = (fused_charge(sizes, layout, L)[1] if mesh is None
+              else n * fused_charge(sizes, layout, L, n)[1])
 del buffers
-rows, charge = fused_charge(sizes, layout, sum(geom))
 free0 = torch.cuda.mem_get_info(dev)[0]
 fill = (free0 - charge - reserve) // (2 << 20) * (2 << 20)
 filler = torch.empty(fill, dtype=torch.uint8, device=dev)
 free1 = torch.cuda.mem_get_info(dev)[0]
-card_budget = budget.budget_from(free1, reserve)
-fused = takes_fused(sizes, layout, sum(geom), card_budget)
+card_budget = budget.device_budget(dev)
 torch.cuda.reset_peak_memory_stats(dev)
-if device_only:   # the stage frees the table once sorted
-    out = global_stage([genome_key_tables(paths, KmerGeometry(*geom),
-                                          device=dev)[0]], layout, len(paths))
+METRICS.reset()
+if kind == "kstream":
+    routed = kstream_route(padded.size, k, mode, card_budget, 1, dev)
+    plan = device_plan(kmers=k, disallow="Nn", sort=True,
+                       complements=mode == "complements",
+                       canonicals=mode == "canonicals")
+    out = _run_stage(padded, plan, dev)
 else:
-    out = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom), device=dev)
+    routed = ("fused" if takes_fused(sizes, layout, L, dev, mesh)
+              else "staged")
+    if kind == "device":   # the stage frees the table once sorted
+        out = global_stage([genome_key_tables(paths, KmerGeometry(*geom),
+                                              device=dev)[0]], layout,
+                           len(paths))
+    else:
+        out = run_pipeline(paths[:2], paths[2:], KmerGeometry(*geom),
+                           device=dev, mesh=mesh)
+        if "intersect" in METRICS.stages:
+            routed = "staged"
 torch.cuda.synchronize()
 print(json.dumps(dict(
-    reserve_bytes=reserve, charge_bytes=charge, budget_bytes=card_budget,
-    fused=fused, free_bytes=free0, free_after_fill_bytes=free1,
+    kind=kind, reserve_bytes=reserve, charge_bytes=charge,
+    budget_bytes=card_budget, routed=routed, free_bytes=free0,
+    free_after_fill_bytes=free1,
     peak_bytes=torch.cuda.max_memory_allocated(dev) - fill,
     free_at_end_bytes=torch.cuda.mem_get_info(dev)[0])))
 """
 
 
-def _squeeze_run(paths, geom, reserve, device_only=False):
+def _squeeze_run(paths, geom, reserve, kind, n=1):
     """``SQUEEZE_RUN`` in a new process: its JSON line as a dict, or
     {"error": the last line of its standard error}."""
     out = subprocess.run([sys.executable, "-c", SQUEEZE_RUN, json.dumps(
-        [paths, list(geom), reserve, device_only])], capture_output=True,
-        text=True, cwd=Path(__file__).parent)
+        [[str(p) for p in paths], list(geom), reserve, kind, n])],
+        capture_output=True, text=True, cwd=Path(__file__).parent)
     if out.returncode != 0:
         return dict(error=(out.stderr.strip().splitlines() or ["?"])[-1])
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_reserve(name, paths, geom, kind, n=1):
+    """14: ``SQUEEZE_RUN`` of one run under ``budget.CARD_RESERVE``, which
+    must route the run to the one-device route (fused, or kstream's one
+    shot) and finish.  Returns its JSON line, with the reserve's part
+    that the run left free at its end."""
+    from krisp_tpu_torch import budget
+    torch.cuda.empty_cache()
+    sq = _squeeze_run(paths, geom, budget.CARD_RESERVE, kind, n)
+    want = "one_shot" if kind == "kstream" else "fused"
+    check("error" not in sq and sq["routed"] == want, f"budget reserve "
+          f"{name}: with the charge plus the reserve free: {sq}")
+    room = sq["charge_bytes"] + sq["reserve_bytes"]
+    sq.update(name=name, reserve_left_bytes=sq["free_at_end_bytes"])
+    print(f"phase 14 budget reserve {name} ({kind}) in a new process with "
+          f"{room / 2**20:.1f} MiB free (charge "
+          f"{sq['charge_bytes'] / 2**20:.1f} + reserve "
+          f"{sq['reserve_bytes'] / 2**20:.1f}): routed {sq['routed']}, peak "
+          f"{sq['peak_bytes'] / 2**20:.1f} MiB, "
+          f"{sq['free_at_end_bytes'] / 2**20:.1f} MiB free at the end",
+          flush=True)
+    return sq
 
 
 def _measure_peak(dev, fn):
@@ -2239,8 +2299,8 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
     size of ``BUDGET_SIZES``, and for one genome at 40 Mb, a fused search
     routed by that budget whose peak is within ``fused_charge`` and whose
     table's extraction alone (``genome_key_tables``) gives the
-    extraction's bytes a genome row, for one genome also
-    ``SQUEEZE_RUN``; the spacer once at 5 x 100 Mb (about 1.0e9 rows), its
+    extraction's bytes a genome row; ``phase_reserve`` of six runs; the
+    spacer once at 5 x 100 Mb (about 1.0e9 rows), its
     unfiltered groups equal to the planted answer; the routing on
     synthetic sizes; and kstream's one-shot stage on the 40 Mb genome
     against its charge."""
@@ -2269,7 +2329,7 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
           flush=True)
     check(0 < card_budget < total, "budget: not within the card")
 
-    def fused_run(name, paths, geom, planted=None, squeeze=False):
+    def fused_run(name, paths, geom, planted=None):
         """One search routed by the card's budget, its peak against its
         charge.  One genome: every row survives, so the device part alone
         (the table and the global stage; the host decode of every row
@@ -2282,8 +2342,7 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
         METRICS.reset()
         t0 = time.perf_counter()
         if device_only:
-            check(takes_fused(sizes, layout, sum(geom),
-                              budget.device_budget(dev)),
+            check(takes_fused(sizes, layout, sum(geom), dev),
                   f"budget {name}: the default budget does not route it "
                   "fused")
             out, peak, gap, outside = _measure_peak(dev, lambda: global_stage(
@@ -2329,20 +2388,6 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
               f"{gap / 2**20:.1f} MiB, outside it {outside / 2**20:.1f} MiB; "
               f"{dt:.2f} s" + (" (device part)" if device_only else ""),
               flush=True)
-        if squeeze:
-            torch.cuda.empty_cache()
-            sq = _squeeze_run(paths, geom, budget.CARD_RESERVE, device_only)
-            r["squeeze"] = sq
-            check("error" not in sq and sq["fused"], f"budget {name}: with "
-                  f"the charge plus the reserve free: {sq}")
-            if "error" not in sq:
-                room = sq["charge_bytes"] + sq["reserve_bytes"]
-                print(f"phase 14 budget {name} in a new process with "
-                      f"{room / 2**20:.1f} MiB free (charge + reserve): "
-                      f"routed fused, peak "
-                      f"{sq['peak_bytes'] / 2**20:.1f} MiB, "
-                      f"{sq['free_at_end_bytes'] / 2**20:.1f} MiB free at "
-                      "the end", flush=True)
         return r
 
     sets = {}
@@ -2359,10 +2404,27 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
                                       geom, iupac)[0]
             sets[name, size] = paths
             fused_run(f"{name} 5 x {size // 10**6} Mb", paths, geom)
-    # every row a survivor: the peaks nearest their charges try the reserve
-    for name, geom in (("spacer", SPACER), ("iupac", SPACER)):
+    # every row a survivor: the peaks nearest their charges
+    for name in ("spacer", "iupac"):
         fused_run(f"{name} 1 x {FULL // 10**6} Mb", sets[name, FULL][:1],
-                  geom, squeeze=True)
+                  SPACER)
+    # the reserve: the runs whose peaks come nearest their charges, a whole
+    # run_pipeline at 5 x 40 Mb (phase 10's route), the sharded route and
+    # kstream's stage, each with only its charge and the reserve free
+    res["reserve"] = [
+        phase_reserve(f"{name} 1 x {FULL // 10**6} Mb",
+                      sets[name, FULL][:1], SPACER, "device")
+        for name in ("spacer", "iupac")]
+    res["reserve"] += [
+        phase_reserve("amplicon 5 x 4 Mb", sets["amplicon", LARGE], AMPLICON,
+                      "pipeline"),
+        phase_reserve("spacer 5 x 40 Mb", full_paths, SPACER, "pipeline"),
+        phase_reserve(f"amplicon 5 x 4 Mb on {SHARD_FULL} virtual shards",
+                      sets["amplicon", LARGE], AMPLICON, "sharded",
+                      SHARD_FULL),
+        phase_reserve("kstream 40 Mb k 28 complements",
+                      [ks_files["40mb_upper"]], (28, "complements"),
+                      "kstream")]
     for name in ("spacer", "amplicon", "iupac"):
         for size in BUDGET_SIZES[1:]:
             if (name, size) != ("spacer", FULL):
@@ -2375,41 +2437,42 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
     res["near_guard"] = near
     shutil.rmtree(td / "budget_near_guard")
 
-    # the routing on synthetic sizes, nothing allocated
-    def layout_of(geom, bits, n):
-        return KeyLayout(*geom, bits, n)
+    # the routing on synthetic sizes, nothing allocated, each under a
+    # budget named as a user names one: the card's budget read above, or
+    # 1 PiB for the row guard alone
+    def routed(sizes, layout, L, named):
+        _set_env(KRISP_TPU_HBM_BUDGET=str(named))
+        return takes_fused(sizes, layout, L, dev)
 
     decisions = {}
     for name, geom, bits in (("spacer", SPACER, 2), ("amplicon", AMPLICON, 2),
                              ("iupac", SPACER, 4)):
-        sizes = [FULL] * N_FILES
         decisions[f"{name} 5 x 40 Mb"] = (
-            takes_fused(sizes, layout_of(geom, bits, N_FILES), sum(geom),
-                        card_budget), True)
+            routed([FULL] * N_FILES, KeyLayout(*geom, bits, N_FILES),
+                   sum(geom), card_budget), True)
     uneven = [600_000_000] + [1_000_000] * 9
-    lay10 = layout_of(SPACER, 2, 10)
+    lay10 = KeyLayout(*SPACER, 2, 10)
     rows_uneven, charge_uneven = fused_charge(uneven, lay10, sum(SPACER))
     decisions["spacer 600 Mb + 9 x 1 Mb"] = (
-        takes_fused(uneven, lay10, sum(SPACER), card_budget), False)
-    # the row guard alone: under a 1 PiB budget (as KRISP_TPU_HBM_BUDGET
-    # may name one), a table just past 2**31 rows is staged and one a
-    # bucket a genome smaller is fused
+        routed(uneven, lay10, sum(SPACER), card_budget), False)
+    # the row guard alone: under a 1 PiB budget a table just past 2**31
+    # rows is staged and one a bucket a genome smaller is fused
     decisions["spacer 600 Mb + 9 x 1 Mb, 1 PiB budget"] = (
-        takes_fused(uneven, lay10, sum(SPACER), 1 << 50), False)
+        routed(uneven, lay10, sum(SPACER), 1 << 50), False)
     check(rows_uneven >= budget.ROW_LIMIT,
           "budget: 600 Mb + 9 x 1 Mb under the row limit")
-    lay5 = layout_of(SPACER, 2, N_FILES)
+    lay5 = KeyLayout(*SPACER, 2, N_FILES)
     guard = [-(-budget.ROW_LIMIT // (2 * N_FILES)) + sum(SPACER)] * N_FILES
     rows_guard, charge_guard = fused_charge(guard, lay5, sum(SPACER))
     decisions[f"spacer 5 x {guard[0]:,}, 1 PiB budget"] = (
-        takes_fused(guard, lay5, sum(SPACER), 1 << 50), False)
+        routed(guard, lay5, sum(SPACER), 1 << 50), False)
     check(rows_guard >= budget.ROW_LIMIT,
           "budget: the row-guard case is under the row limit")
     under = [guard[0] - (1 << 16)] * N_FILES
     decisions[f"spacer 5 x {under[0]:,}, 1 PiB budget"] = (
-        takes_fused(under, lay5, sum(SPACER), 1 << 50), True)
+        routed(under, lay5, sum(SPACER), 1 << 50), True)
     # just past the budget: the amplicon layout, a bucket at a time
-    lay_a = layout_of(AMPLICON, 2, N_FILES)
+    lay_a = KeyLayout(*AMPLICON, 2, N_FILES)
     size = 1 << 16
     while fused_charge([size * 2] * N_FILES, lay_a, sum(AMPLICON))[1] \
             <= card_budget:
@@ -2424,8 +2487,8 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
             hi = mid
     for sz, want in ((lo, True), (hi, False)):
         decisions[f"amplicon 5 x {sz:,} (budget edge)"] = (
-            takes_fused([sz] * N_FILES, lay_a, sum(AMPLICON), card_budget),
-            want)
+            routed([sz] * N_FILES, lay_a, sum(AMPLICON), card_budget), want)
+    _set_env(KRISP_TPU_HBM_BUDGET=None)
     for what, (got, want) in decisions.items():
         print(f"phase 14 budget routing {what}: "
               f"{'fused' if got else 'staged'}", flush=True)
@@ -2453,8 +2516,8 @@ def phase_budget(dev, genomes, full_paths, td, ks_files):
         plan = device_plan(kmers=k, disallow="Nn", sort=True,
                            complements=mode == "complements",
                            canonicals=mode == "canonicals")
-        est = padded.size * budget.kstream_window_bytes(k, mode, True)
-        old_est = padded.size * budget.kstream_window_bytes(k, mode, False)
+        est = padded.size * budget.kstream_card_bytes(k, mode)
+        old_est = padded.size * budget.kstream_tpu_bytes(k)
         check(kstream_route(padded.size, k, mode, card_budget) == "one_shot",
               f"budget kstream k {k} {mode}: not routed one shot")
         _, peak, gap, _ = _measure_peak(dev, lambda: _run_stage(padded, plan,

@@ -5,10 +5,13 @@ against it, and the row limit of the kernels.
 ``device_budget`` reads ``KRISP_TPU_HBM_BUDGET`` at call time, as
 krisp_tpu does; unset, a card's budget is its free memory at call time
 less ``CARD_RESERVE`` (``budget_from``), and the CPU's is krisp_tpu's
-default of 8 GiB, so that CPU runs route as krisp_tpu's do.
+default of 8 GiB.  ``device_charge`` is the one place where the card's
+rule and the CPU's part: on a card a stage is charged its rows, held to
+``ROW_LIMIT``, and the port's own bytes; on the CPU krisp_tpu's estimate
+and no rows, so that CPU runs route as krisp_tpu's do.
 
-The charges describe the port's own tables, in bytes a row of the fused
-table (``engine.pipeline.fused_charge`` counts the rows): the buffers the
+The card's charges describe the port's own tables, in bytes a row (the
+callers count the rows and list their steps' bytes a row): the buffers the
 code holds at each step, with the constants the steps' temporaries need
 as measured by ``chip_smoke.py`` phase 14 on an H100 (``PERF.md`` §3).
 Every step's charge is the worst case over the data: every row a
@@ -32,6 +35,9 @@ from .ops.sort import KEY_MODE_WORDS
 #: krisp_tpu's ``KRISP_TPU_HBM_BUDGET`` default, sized for a TPU v5e; the
 #: port's budget on the CPU
 CPU_BUDGET = 8 << 30
+#: krisp_tpu's charge for the fused search: bytes a window of each
+#: genome's own bucket, both strands (the port's rule on the CPU)
+KRISP_TPU_WINDOW_BYTES = 56
 #: bytes of a card's free memory left out of its budget: the CUDA modules
 #: loaded at first use and the allocator's rounding and split blocks when
 #: memory runs short (``chip_smoke.py`` phase 14 runs the searches whose
@@ -97,10 +103,16 @@ def device_budget(dev) -> int:
     return budget_from(free + cached)
 
 
-def fits(rows: int, charge: int, budget: int) -> bool:
-    """Whether a table of ``rows`` rows charged ``charge`` bytes takes the
-    one-device route: under the row limit and within ``budget``."""
-    return rows < ROW_LIMIT and charge <= budget
+def device_charge(dev, rows: int, card_bytes: int,
+                  cpu_bytes: int) -> tuple[int, int]:
+    """(rows, bytes) that a stage is charged on ``dev`` against
+    ``device_budget(dev)``: on a card its ``rows``, which must stay under
+    ``ROW_LIMIT``, and ``card_bytes``, the port's own charge; elsewhere no
+    rows and ``cpu_bytes``, krisp_tpu's estimate, so that CPU runs route as
+    krisp_tpu's do."""
+    if torch.device(dev).type == "cuda":
+        return rows, card_bytes
+    return 0, cpu_bytes
 
 
 def sort_row_bytes(n_words: int) -> int:
@@ -118,33 +130,15 @@ def extract_row_bytes(bits: int, n_words: int) -> int:
     return EXTRACT_ROW_BYTES + (2 * 4 * n_words if bits != 2 else 0)
 
 
-def fused_bytes(layout, rows: int, genome_rows: int,
-                prefilter: bool) -> int:
-    """The fused path's peak on one device for a table of ``rows`` rows
+def table_bytes(layout, rows: int, genome_rows: int, stages) -> int:
+    """The peak on one device of a search over a table of ``rows`` rows
     (``genome_rows`` a genome): the larger of the extraction (the table
-    and one genome's temporaries) and the global stage (the sort and the
-    compaction; with ``prefilter``, also the prefilter and its gather)."""
+    and one genome's temporaries) and the steps after it, whose bytes a
+    row ``stages`` lists (the fused path's or a shard's)."""
     W = layout.n_words
-    stage = max(sort_row_bytes(W), 2 * 4 * W + COMPACT_ROW_BYTES)
-    if prefilter:
-        stage = max(stage, 4 * W + PREFILTER_ROW_BYTES, 8 * W + 8)
     extract = (4 * W * rows
                + extract_row_bytes(layout.bits, W) * genome_rows)
-    return max(stage * rows, extract) + ROW_SLACK * rows
-
-
-def shard_bytes(layout, rows: int, genome_rows: int) -> int:
-    """The sharded path's peak for one shard of ``rows`` rows
-    (``genome_rows`` a genome of its slice): the larger of the extraction,
-    the sort, the owner computation, the merge of the runs it receives
-    (the runs, a level of the merge tree and the merged run) and the
-    compaction, for an even share of the key range."""
-    W = layout.n_words
-    stage = max(sort_row_bytes(W), 4 * W + OWNER_ROW_BYTES, 3 * 4 * W,
-                2 * 4 * W + COMPACT_ROW_BYTES)
-    extract = (4 * W * rows
-               + extract_row_bytes(layout.bits, W) * genome_rows)
-    return max(stage * rows, extract) + ROW_SLACK * rows
+    return max(max(stages) * rows, extract) + ROW_SLACK * rows
 
 
 def kstream_rows(n_bases: int, mode: str) -> int:
@@ -153,16 +147,20 @@ def kstream_rows(n_bases: int, mode: str) -> int:
     return n_bases * (2 if mode == "complements" else 1)
 
 
-def kstream_window_bytes(k: int, mode: str, card: bool) -> int:
-    """Bytes a window start that kstream's device stage is charged:
-    krisp_tpu's estimate (both strands' rows of key words and a count,
-    three buffers through the sort), and on a card at least the duplicate
-    collapse's and the compaction's peaks, which krisp_tpu's estimate
-    falls short of for ``complements`` at k <= 32."""
+def kstream_tpu_bytes(k: int) -> int:
+    """krisp_tpu's estimate of the bytes a window start of kstream's device
+    stage: both strands' rows of key words and a count, three buffers
+    through the sort."""
+    return 2 * ((2 * k + 31) // 32 + 1) * 4 * 3
+
+
+def kstream_card_bytes(k: int, mode: str) -> int:
+    """The bytes a window start that kstream's device stage is charged on
+    a card: krisp_tpu's estimate, raised to the duplicate collapse's and
+    the compaction's peaks where they need more (``complements`` at
+    k <= 32)."""
     W = (2 * k + 31) // 32
-    est = 2 * (W + 1) * 4 * 3
-    if card:
-        collapse = max(4 * W + DEDUP_ROW_BYTES,
-                       2 * 4 * W + KSTREAM_COMPACT_ROW_BYTES)
-        est = max(est, kstream_rows(1, mode) * (collapse + ROW_SLACK))
-    return est
+    collapse = max(4 * W + DEDUP_ROW_BYTES,
+                   2 * 4 * W + KSTREAM_COMPACT_ROW_BYTES)
+    return max(kstream_tpu_bytes(k),
+               kstream_rows(1, mode) * (collapse + ROW_SLACK))

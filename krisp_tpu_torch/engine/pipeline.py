@@ -14,10 +14,11 @@ first pass the one-word prefix prefilter and run that stage on the rows it
 keeps.
 
 Staged (out-of-core) path, taken with a ``workdir`` or where the fused
-path does not fit (``_takes_fused``: on a card its table must hold fewer
+path does not fit (``takes_fused``: on a card its table must hold fewer
 rows than the kernels take and its peak, ``fused_charge``, must fit the
 card's budget, ``budget.device_budget``; on the CPU krisp_tpu's rule, 56
-bytes a window against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB):
+bytes a window against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB; over a
+process group every process takes the route that all of them fit):
 
   per genome, chunks of ``KRISP_TPU_CHUNK_BASES`` window starts (default
   64 Mb): upload the bytes, window keys, sort, duplicate collapse, pull ->
@@ -55,8 +56,10 @@ import numpy as np
 import torch
 
 from .. import dna
-from ..budget import (ROW_LIMIT, device_budget, fits, fused_bytes,
-                      shard_bytes)
+from ..budget import (COMPACT_ROW_BYTES, KRISP_TPU_WINDOW_BYTES,
+                      OWNER_ROW_BYTES, PREFILTER_ROW_BYTES, ROW_LIMIT,
+                      device_budget, device_charge, sort_row_bytes,
+                      table_bytes)
 from ..convert import keys_from_numpy, keys_to_numpy
 from ..device import devices_for_run, resolve_device
 from ..io.fasta import bucket_size, load_buffer, simple_name
@@ -141,11 +144,6 @@ def _encoding_tables(bits: int, omit_soft: bool):
     return code_table, valid_table, comp_table
 
 
-#: krisp_tpu's charge for the fused path: 56 bytes a window of each
-#: genome's own bucket, both strands (the port's routing on the CPU)
-KRISP_TPU_WINDOW_BYTES = 56
-
-
 def _shard_chunk(sizes, L: int, n_shards: int) -> int:
     """krisp_tpu's slice of a genome a shard: the largest genome over the
     shard count, at least the window, rounded up to 1024."""
@@ -155,51 +153,58 @@ def _shard_chunk(sizes, L: int, n_shards: int) -> int:
 
 def fused_charge(sizes, layout: KeyLayout, L: int,
                  n_shards: int | None = None):
-    """(rows, bytes) of the fused search over genomes of ``sizes`` bases
-    at window length ``L``.  One device (``n_shards`` None): the rows of
-    the table as ``_fused_table`` allocates them (every genome padded to
-    the largest one's bucket, both strands) and the device's peak
-    (``budget.fused_bytes``).  A mesh of ``n_shards`` shards: the rows of
-    every shard's table together as ``_sharded`` allocates them (every
-    genome padded to ``n_shards`` slices) and one shard's peak
-    (``budget.shard_bytes``).  Nothing is allocated."""
-    n_files = len(sizes)
+    """(rows, bytes) of the fused search on a card over genomes of
+    ``sizes`` bases at window length ``L``.  One device (``n_shards``
+    None): the rows of the table as ``_fused_table`` allocates them (every
+    genome padded to the largest one's bucket, both strands) and the
+    device's peak: the sort, the compaction with every row a survivor
+    and, where the prefilter runs, its temporaries and its gather.  A mesh
+    of ``n_shards`` shards: the rows of every shard's table together as
+    ``_sharded`` allocates them (every genome padded to ``n_shards``
+    slices) and one shard's peak: the sort, the owner computation, the
+    merge of the runs it receives (the runs, a level of the merge tree and
+    the merged run) and the compaction, for an even share of the key
+    range (``budget.table_bytes``).  Nothing is allocated."""
+    W, n_files = layout.n_words, len(sizes)
+    compact = 2 * 4 * W + COMPACT_ROW_BYTES
     if n_shards is None:
         genome_rows = 2 * max(bucket_size(max(sizes)) - L + 1, 0)
+        stages = [sort_row_bytes(W), compact]
+        if prefilter_gate(layout):
+            stages += [4 * W + PREFILTER_ROW_BYTES, 8 * W + 8]
         rows = n_files * genome_rows
-        return rows, fused_bytes(layout, rows, genome_rows,
-                                 prefilter_gate(layout))
+        return rows, table_bytes(layout, rows, genome_rows, stages)
     genome_rows = 2 * _shard_chunk(sizes, L, n_shards)
+    stages = [sort_row_bytes(W), 4 * W + OWNER_ROW_BYTES, 3 * 4 * W, compact]
     rows = n_files * genome_rows
-    return rows * n_shards, shard_bytes(layout, rows, genome_rows)
+    return rows * n_shards, table_bytes(layout, rows, genome_rows, stages)
 
 
-def takes_fused(sizes, layout: KeyLayout, L: int, budget: int,
-                n_shards: int | None = None,
-                shards_a_device: int = 1) -> bool:
-    """The card's routing on sizes alone (``fused_charge``'s arguments):
-    the fused search runs when its table holds fewer than
-    ``budget.ROW_LIMIT`` rows (all shards together: one owner may receive
-    every row) and the peak of ``shards_a_device`` shards fits ``budget``
-    bytes; else the staged path runs."""
-    rows, charge = fused_charge(sizes, layout, L, n_shards)
-    return fits(rows, charge * shards_a_device, budget)
-
-
-def _takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh) -> bool:
-    """``run_pipeline``'s fused-or-staged decision.  On a card
-    ``takes_fused`` against the budget of each device the run uses; on the
-    CPU krisp_tpu's rule (``KRISP_TPU_WINDOW_BYTES`` a window of each
-    genome's own bucket against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB),
-    so that CPU runs route as krisp_tpu's do."""
-    if dev.type != "cuda":
-        est = KRISP_TPU_WINDOW_BYTES * 2 * sum(bucket_size(s) for s in sizes)
-        return est <= device_budget(dev)
+def takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh=None) -> bool:
+    """``run_pipeline``'s route, on sizes alone: whether the fused search
+    over genomes of ``sizes`` bases at window length ``L`` runs on ``dev``
+    (or over ``mesh``), else the staged path.  Each device the run uses
+    must fit its charge (``budget.device_charge``) in its budget
+    (``budget.device_budget``): on a card, a table of fewer than
+    ``budget.ROW_LIMIT`` rows (over a mesh all shards together, since one
+    owner may receive every row) whose peak (``fused_charge``; of every
+    shard the device runs) fits; on the CPU krisp_tpu's rule,
+    ``KRISP_TPU_WINDOW_BYTES`` a window of each genome's own bucket.  Over
+    a process group every process takes the fused path only if all of
+    them fit it, so that no process waits in a collective that another
+    never calls."""
+    cpu = KRISP_TPU_WINDOW_BYTES * 2 * sum(bucket_size(s) for s in sizes)
     if mesh is None:
-        return takes_fused(sizes, layout, L, device_budget(dev))
-    per_device = Counter(d for _, d in mesh.local)
-    return all(takes_fused(sizes, layout, L, device_budget(d), mesh.size, k)
-               for d, k in per_device.items())
+        rows, card = fused_charge(sizes, layout, L)
+        shards = {dev: 1}
+    else:
+        rows, card = fused_charge(sizes, layout, L, mesh.size)
+        shards = Counter(d for _, d in mesh.local)
+    ok = True
+    for d, k in shards.items():
+        r, charge = device_charge(d, rows, card * k, cpu)
+        ok &= r < ROW_LIMIT and charge <= device_budget(d)
+    return ok if mesh is None else mesh.all_true(ok)
 
 
 def _stack(buffers) -> np.ndarray:
@@ -411,7 +416,7 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
     ``krisp_tpu.engine.pipeline.run_pipeline``'s.  ``ingroup_filter``
     defaults to the reference's gate: filter iff there is a diagnostic
     region and an outgroup.  ``workdir`` (a table cache to resume from) or
-    an input that the fused path does not fit (``_takes_fused``) takes the
+    an input that the fused path does not fit (``takes_fused``) takes the
     staged path; without ``workdir`` the tables then go to a temporary
     directory that is removed when the run ends.  A device error raises:
     no route is retried on another.  ``n_devices`` (default
@@ -439,8 +444,8 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
     if workdir is None:
         if mesh is None:
             mesh = _mesh_for_run(layout, n_dev)
-        if not _takes_fused([b.size for b in buffers], layout, geom.total,
-                            dev, mesh):
+        if not takes_fused([b.size for b in buffers], layout, geom.total,
+                           dev, mesh):
             workdir = tmp_workdir = tempfile.mkdtemp(
                 prefix="krisp_tpu_tables_")
 

@@ -38,8 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .budget import (ROW_LIMIT, device_budget, kstream_rows,
-                     kstream_window_bytes)
+from .budget import (ROW_LIMIT, device_budget, device_charge,
+                     kstream_card_bytes, kstream_rows, kstream_tpu_bytes)
 from .convert import keys_to_numpy
 from .device import devices_for_run, resolve_device
 from .io.fasta import bucket_size, load_buffer
@@ -179,15 +179,14 @@ def run_device_kstream(path, plan: DevicePlan, out_stream, device="cuda"):
     padded[:buf.size] = buf
 
     budget = device_budget(dev)
-    card = dev.type == "cuda"
     n_dev = devices_for_run(None, dev)
-    route = kstream_route(padded.size, k, plan.mode, budget, n_dev, card)
+    route = kstream_route(padded.size, k, plan.mode, budget, n_dev, dev)
     if route == "sharded":
         from .parallel import distributed
         n = _run_sharded(buf, plan, out_stream, distributed.make_mesh(n_dev))
         if n is not None:
             return n
-        route = kstream_route(padded.size, k, plan.mode, budget, 1, card)
+        route = kstream_route(padded.size, k, plan.mode, budget, 1, dev)
     if route == "segmented":
         return _run_segmented(buf, plan, out_stream, budget, dev)
 
@@ -208,19 +207,21 @@ def run_device_kstream(path, plan: DevicePlan, out_stream, device="cuda"):
 
 
 def kstream_route(n_padded: int, k: int, mode: str, budget: int,
-                  n_dev: int = 1, card: bool = True) -> str:
+                  n_dev: int = 1, dev="cuda") -> str:
     """The device engine's path for ``n_padded`` window starts at k-mer
-    length ``k`` in ``mode``: "sharded" over ``n_dev`` > 1 devices where a
-    device's share of the charge fits ``budget``, "segmented" where the
-    one-shot stage's charge does not fit, else "one_shot".  The charge is
-    ``budget.kstream_window_bytes`` a window start (the stage holds the
+    length ``k`` in ``mode`` on ``dev``: "sharded" over ``n_dev`` > 1
+    devices where a device's share of the charge fits ``budget``,
+    "segmented" where the one-shot stage's charge does not fit, else
+    "one_shot".  The charge (``budget.device_charge``) is, on a card,
+    ``budget.kstream_card_bytes`` a window start (the stage holds the
     whole window table: key words and counts through the sort and the
-    duplicate collapse).  On a card (``card``) a sort of
-    ``budget.ROW_LIMIT`` rows or more, which the kernel refuses, is
-    segmented too, and so never sharded, since one owner may receive every
-    row; on the CPU the rule is krisp_tpu's."""
-    est = n_padded * kstream_window_bytes(k, mode, card)
-    rows_ok = not card or kstream_rows(n_padded, mode) < ROW_LIMIT
+    duplicate collapse) and the sort's rows, which must stay under
+    ``budget.ROW_LIMIT`` (all shards together, since one owner may receive
+    every row); on the CPU krisp_tpu's estimate alone."""
+    rows, est = device_charge(dev, kstream_rows(n_padded, mode),
+                              n_padded * kstream_card_bytes(k, mode),
+                              n_padded * kstream_tpu_bytes(k))
+    rows_ok = rows < ROW_LIMIT
     if n_dev > 1 and est // n_dev <= budget and rows_ok:
         return "sharded"
     if est > budget or not rows_ok:
@@ -228,18 +229,17 @@ def kstream_route(n_padded: int, k: int, mode: str, budget: int,
     return "one_shot"
 
 
-def segment_starts(budget: int, k: int, mode: str, card: bool) -> int:
+def segment_starts(budget: int, k: int, mode: str, dev="cuda") -> int:
     """Window starts a segment of ``_run_segmented`` owns: as many as
-    ``budget`` bytes are charged for (``budget.kstream_window_bytes``), at
-    least max(k, 4096); on a card (``card``) few enough that a segment's
-    rows, its bucket's rounding included, stay under the kernels'
-    ``budget.ROW_LIMIT``."""
-    S = max(int(budget) // kstream_window_bytes(k, mode, card),
-            max(k, 4096))
-    if card:
-        S = min(S, (ROW_LIMIT - 1) // kstream_rows(1, mode) - (k - 1)
-                - (1 << 16))
-    return S
+    ``budget`` bytes are charged for on ``dev`` (``kstream_route``'s
+    charge of one window start), at least max(k, 4096), and few enough
+    that a segment's rows, its bucket's rounding included, stay under the
+    kernels' ``budget.ROW_LIMIT``."""
+    _, per_start = device_charge(dev, 0, kstream_card_bytes(k, mode),
+                                 kstream_tpu_bytes(k))
+    S = max(int(budget) // per_start, max(k, 4096))
+    return min(S, (ROW_LIMIT - 1) // kstream_rows(1, mode) - (k - 1)
+               - (1 << 16))
 
 
 def _embed_params(k, bits):
@@ -417,19 +417,19 @@ def _run_sharded(buf, plan: DevicePlan, out_stream, mesh):
 
 def _run_segmented(buf, plan: DevicePlan, out_stream, budget, device="cuda"):
     """Inputs the one-shot stage does not fit (``kstream_route``):
-    fixed-size segments (as many window starts as ``budget`` bytes are
-    charged for; on a card fewer rows than the kernels take; k-1 overlap
-    for window context) each sorted/deduped on ``device``, unique
-    (k-mer, count) runs spilled to disk, then one host merge summing counts
-    of k-mers that recur across segments.  Byte-identical to the one-shot
-    path."""
+    fixed-size segments (``segment_starts``: as many window starts as
+    ``budget`` bytes are charged for, fewer rows than the kernels take;
+    k-1 overlap for window context) each sorted/deduped on ``device``,
+    unique (k-mer, count) runs spilled to disk, then one host merge summing
+    counts of k-mers that recur across segments.  Byte-identical to the
+    one-shot path."""
     import heapq
     import itertools
     import tempfile
 
     dev = resolve_device(device)
     k = plan.k
-    S = segment_starts(budget, k, plan.mode, dev.type == "cuda")
+    S = segment_starts(budget, k, plan.mode, dev)
     if buf.size <= S:                    # only one segment: not actually
         S = buf.size                     # over budget; still correct
     P = bucket_size(S + k - 1)

@@ -61,8 +61,8 @@ class Mesh:
     In one process (``group`` None) shard i runs on ``devices[i]``; a device
     may repeat.  With a process group this process runs the one shard
     ``rank`` of ``size`` on ``devices[0]``, and ``grid`` holds the ranks by
-    (host, local) (``multihost.pod_mesh``).  The four collectives below are
-    the only places where shards meet; every sharded function runs its
+    (host, local) (``multihost.pod_mesh``).  The collectives below are the
+    only places where shards meet; every sharded function runs its
     per-shard steps over ``local`` and calls them."""
 
     def __init__(self, devices, group=None, rank: int = 0,
@@ -144,6 +144,17 @@ class Mesh:
         got = [torch.empty_like(padded) for _ in range(self.size)]
         dist.all_gather(got, padded, group=self.group)
         return [g[:m].T for g, m in zip(got, sizes)]
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether ``flag`` holds in every process of the group (in one
+        process, ``flag``): a decision every process then takes alike."""
+        if self.group is None:
+            return bool(flag)
+        import torch.distributed as dist
+        t = torch.tensor([int(bool(flag))], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return bool(t.item())
 
     def all_reduce_sum(self, parts: dict) -> torch.Tensor:
         """{shard: tensor} -> the elementwise sum over every shard, on

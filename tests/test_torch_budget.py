@@ -9,7 +9,11 @@ import pytest
 
 pytest.importorskip("jax")
 
+import socket  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
 import tempfile  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -27,6 +31,7 @@ from krisp_tpu_torch.parallel.distributed import Mesh  # noqa: E402
 
 SPACER = (25, 1, 2)
 CUDA0 = torch.device("cuda", 0)
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _genomes(tmp_path, sizes, seed=5, alphabet="ACGT"):
@@ -97,8 +102,7 @@ def test_cpu_routing_is_krisp_tpus(monkeypatch, sizes):
     monkeypatch.delenv("KRISP_TPU_HBM_BUDGET", raising=False)
     layout = KeyLayout(*SPACER, 2, len(sizes))
     want = 56 * 2 * sum(jax_bucket_size(s) for s in sizes) <= 8 << 30
-    got = TP._takes_fused(sizes, layout, sum(SPACER), torch.device("cpu"),
-                          None)
+    got = TP.takes_fused(sizes, layout, sum(SPACER), torch.device("cpu"))
     assert got == want
 
 
@@ -129,7 +133,7 @@ def test_cpu_routing_matches_krisp_tpu_end_to_end(tmp_path, monkeypatch,
     assert len(key) == 2   # the planted window, both strands
 
 
-def test_charge_counts_the_largest_bucket_for_every_genome():
+def test_charge_counts_the_largest_bucket_for_every_genome(monkeypatch):
     """Uneven genomes: the fused table holds n_files x 2 x (bucket(largest)
     - L + 1) rows, not the sum of each genome's own windows."""
     sizes = [600_000_000] + [1_000_000] * 9
@@ -140,7 +144,8 @@ def test_charge_counts_the_largest_bucket_for_every_genome():
     assert rows > 19 * sum(2 * (bucket_size(s) - L + 1) for s in sizes) // 10
     assert charge >= rows * B.sort_row_bytes(layout.n_words)
     assert rows >= B.ROW_LIMIT
-    assert not TP.takes_fused(sizes, layout, L, 1 << 60)
+    monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(1 << 60))
+    assert not TP.takes_fused(sizes, layout, L, CUDA0)
 
 
 def test_charge_rows_are_the_tables_rows(tmp_path):
@@ -163,28 +168,34 @@ def test_shard_charge_rows_and_shards_a_device(monkeypatch):
     rows, shard = TP.fused_charge(sizes, layout, L, 4)
     chunk = TP._shard_chunk(sizes, L, 4)
     assert chunk == 1_000_448 and rows == 4 * 5 * 2 * chunk
-    assert shard == B.shard_bytes(layout, 5 * 2 * chunk, 2 * chunk)
+    W = layout.n_words
+    assert shard == B.table_bytes(
+        layout, 5 * 2 * chunk, 2 * chunk,
+        [B.sort_row_bytes(W), 4 * W + B.OWNER_ROW_BYTES, 3 * 4 * W,
+         2 * 4 * W + B.COMPACT_ROW_BYTES])
     mesh = Mesh([CUDA0] * 4)
     for budget, want in ((4 * shard, True), (4 * shard - 1, False)):
         monkeypatch.setattr(TP, "device_budget", lambda dev: budget)
-        assert TP._takes_fused(sizes, layout, L, CUDA0, mesh) == want
+        assert TP.takes_fused(sizes, layout, L, CUDA0, mesh) == want
 
 
 @pytest.mark.parametrize("geom,bits", [(SPACER, 2), ((30, 40, 30), 2),
                                        (SPACER, 4), ((5, 60, 5), 2),
                                        ((4, 1, 3), 2)])
-def test_card_routing_over_budget_takes_staged(geom, bits):
+def test_card_routing_over_budget_takes_staged(monkeypatch, geom, bits):
     """A charge one byte over the budget routes staged; at the budget,
     fused."""
     sizes = [40_000_000] * 5
     layout = KeyLayout(*geom, bits, 5)
     rows, charge = TP.fused_charge(sizes, layout, sum(geom))
     assert rows < B.ROW_LIMIT
-    assert TP.takes_fused(sizes, layout, sum(geom), charge)
-    assert not TP.takes_fused(sizes, layout, sum(geom), charge - 1)
+    monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(charge))
+    assert TP.takes_fused(sizes, layout, sum(geom), CUDA0)
+    monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(charge - 1))
+    assert not TP.takes_fused(sizes, layout, sum(geom), CUDA0)
 
 
-def test_row_guard_sends_2_31_rows_staged():
+def test_row_guard_sends_2_31_rows_staged(monkeypatch):
     """A table of 2**31 rows or more takes the staged path whatever the
     budget; one bucket fewer a genome stays fused."""
     L = sum(SPACER)
@@ -193,13 +204,15 @@ def test_row_guard_sends_2_31_rows_staged():
     under = [over[0] - (1 << 16)] * 5
     assert TP.fused_charge(over, layout, L)[0] >= B.ROW_LIMIT
     assert TP.fused_charge(under, layout, L)[0] < B.ROW_LIMIT
-    assert not TP.takes_fused(over, layout, L, 1 << 60)
-    assert TP.takes_fused(under, layout, L, 1 << 60)
+    monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(1 << 60))
+    assert not TP.takes_fused(over, layout, L, CUDA0)
+    assert TP.takes_fused(under, layout, L, CUDA0)
     # over a mesh the guard counts every shard's rows: one owner may
     # receive them all
-    assert not TP.takes_fused(over, layout, L, 1 << 60, n_shards=4)
-    assert not B.fits(B.ROW_LIMIT, 0, 1 << 60)
-    assert B.fits(B.ROW_LIMIT - 1, 0, 1 << 60)
+    assert not TP.takes_fused(over, layout, L, CUDA0, Mesh([CUDA0] * 4))
+    # the card's charge holds the rows; the CPU's (krisp_tpu's) counts none
+    assert B.device_charge(CUDA0, B.ROW_LIMIT, 5, 7) == (B.ROW_LIMIT, 5)
+    assert B.device_charge("cpu", B.ROW_LIMIT, 5, 7) == (0, 7)
 
 
 @pytest.mark.parametrize("mode,n", [("complements", 1 << 30),
@@ -216,17 +229,19 @@ def test_row_guard_sends_kstream_one_shot_to_segments(mode, n):
     assert KD.kstream_route(n - (1 << 16), 28, mode, huge) == "one_shot"
     assert KD.kstream_route(n - (1 << 16), 28, mode, huge,
                             n_dev=4) == "sharded"
-    assert KD.kstream_route(n, 28, mode, huge, card=False) == "one_shot"
+    assert KD.kstream_route(n, 28, mode, huge, dev="cpu") == "one_shot"
 
 
 @pytest.mark.parametrize("k", [12, 28, 100, 512])
 @pytest.mark.parametrize("mode", ["plain", "complements", "canonicals"])
 def test_kstream_segments_stay_under_the_row_limit(k, mode):
     """A segment of the segmented path, its bucket included, stays under
-    the kernels' row limit on a card at any budget."""
-    S = KD.segment_starts(1 << 60, k, mode, card=True)
-    assert B.kstream_rows(bucket_size(S + k - 1), mode) < B.ROW_LIMIT
-    assert KD.segment_starts(36_000_000, k, mode, card=False) == max(
+    the kernels' row limit at any budget; under krisp_tpu's budgets the
+    CPU's segments are krisp_tpu's."""
+    for dev in (CUDA0, "cpu"):
+        S = KD.segment_starts(1 << 60, k, mode, dev)
+        assert B.kstream_rows(bucket_size(S + k - 1), mode) < B.ROW_LIMIT
+    assert KD.segment_starts(36_000_000, k, mode, "cpu") == max(
         36_000_000 // (2 * ((2 * k + 31) // 32 + 1) * 12), 4096, k)
 
 
@@ -241,8 +256,8 @@ def test_kstream_charge_covers_the_duplicate_collapse(k, mode, over):
     k <= 32); on the CPU it is krisp_tpu's."""
     W = (2 * k + 31) // 32
     krisp = 2 * (W + 1) * 4 * 3
-    assert B.kstream_window_bytes(k, mode, card=False) == krisp
-    card = B.kstream_window_bytes(k, mode, card=True)
+    assert B.kstream_tpu_bytes(k) == krisp
+    card = B.kstream_card_bytes(k, mode)
     assert card >= B.kstream_rows(1, mode) * (4 * W + B.DEDUP_ROW_BYTES)
     assert (card > krisp) == over
 
@@ -284,3 +299,51 @@ def test_device_error_in_the_kstream_stage_raises(tmp_path, monkeypatch):
         KD.run_device_kstream(str(path), plan, open(tmp_path / "o", "wb"),
                               device="cpu")
     assert segmented == []
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("budgets,route", [
+    ((1 << 40, 0), "staged"),       # one rank's device does not fit
+    ((0, 1 << 40), "staged"),
+    ((1 << 40, 1 << 40), "fused"),  # every rank's does: the sharded path
+])
+def test_process_group_takes_one_route(tmp_path, budgets, route):
+    """Over a process group (``multihost.pod_mesh``) whose ranks see
+    different budgets, every rank takes the route that all of them fit
+    (``Mesh.all_true``): none waits in a collective of the sharded path
+    that another rank never calls.  Two gloo processes over the CPU
+    (``tests/torch_budget_worker.py``), each with its own budget; both
+    write the groups of one device's run."""
+    paths = _genomes(tmp_path, [3000, 2000, 5000])
+    want = TP.run_pipeline(paths[:2], paths[2:], TP.KmerGeometry(*SPACER),
+                           ingroup_filter=False, device="cpu")
+    want = repr([(g.left, g.right, [(a.mid, a.label_counts)
+                                    for a in g.amplicons]) for g in want])
+    port = _free_port()
+    worker = Path(__file__).parent / "torch_budget_worker.py"
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(port), str(rank), "2",
+         str(budgets[rank]), *paths],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (rc, out, err) in enumerate(outs):
+        assert rc == 0, err[-3000:]
+        lines = dict(line.split(" ", 1) for line in out.splitlines()
+                     if line.startswith(("ROUTE", "GROUPS")))
+        assert lines["ROUTE"] == f"{rank} {route}"
+        assert lines["GROUPS"] == want
