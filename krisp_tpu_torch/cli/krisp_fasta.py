@@ -9,6 +9,11 @@ through the port's engine: spacer geometries (``--conserved-left 25
 IUPAC letters (4-bit keys); ``--devices N`` shards the search over N cards
 and ``--profile-dir DIR`` records a ``torch.profiler`` trace of it.  Run
 it as ``python -m krisp_tpu_torch.cli.krisp_fasta ...``.
+
+A search, from its geometry to the last file closed, is one span
+``krisp_fasta`` in a profiler's trace, with a span ``krisp:<stage>`` for
+each of its stages inside it; the CSV and alignment writes are stage
+``render`` (items: groups written).
 """
 
 from __future__ import annotations
@@ -69,8 +74,8 @@ def parse_args(argv):
                         help="Print runtime information to sys.stderr")
     parser.add_argument("--profile-dir", type=str, metavar="PATH",
                         help="Capture a torch.profiler trace (TensorBoard "
-                             "plugin format) of the device pipeline into "
-                             "this directory")
+                             "plugin format) of the whole search into this "
+                             "directory")
     return parser.parse_args(argv)
 
 
@@ -96,7 +101,7 @@ def main(argv=None):
     from ..engine import render
     from ..engine.pipeline import run_pipeline, solve_geometry
     from ..metrics import GLOBAL as METRICS
-    from ..metrics import profiler_trace
+    from ..metrics import profiler_trace, span
     from ..runtime import setup as _setup_runtime
 
     device, rest = split_device_flag(sys.argv[1:] if argv is None else argv)
@@ -122,62 +127,62 @@ def main(argv=None):
             print(f"({i}) {f}", file=sys.stderr)
         print(file=sys.stderr)
 
-    with profiler_trace(args.profile_dir, device):
+    with profiler_trace(args.profile_dir, device), span("krisp_fasta"):
         groups = run_pipeline(args.files, args.outgroup, geom,
                               omit_soft=args.omit_soft, workdir=args.workdir,
                               n_devices=args.devices, device=device)
 
-    p3_args = dict(tm=tuple(args.tm), gc=tuple(args.gc),
-                   amp_size=tuple(args.amp_size),
-                   primer_size=tuple(args.primer_size),
-                   max_sec_tm=args.max_sec_tm, gc_clamp=args.gc_clamp,
-                   max_end_gc=args.max_end_gc)
+        p3_args = dict(tm=tuple(args.tm), gc=tuple(args.gc),
+                       amp_size=tuple(args.amp_size),
+                       primer_size=tuple(args.primer_size),
+                       max_sec_tm=args.max_sec_tm, gc_clamp=args.gc_clamp,
+                       max_end_gc=args.max_end_gc)
 
-    out_csv, close_csv = _open_out(args.out_csv, sys.stdout)
-    out_align, close_align = _open_out(args.out_align, None)
+        out_csv, close_csv = _open_out(args.out_csv, sys.stdout)
+        out_align, close_align = _open_out(args.out_align, None)
 
-    if args.primer3:
-        from ..thermo.design import design_primers_for_group
-        with METRICS.stage("primer3", items=len(groups)):
-            if args.cores > 1 and len(groups) > 1:
-                import multiprocessing as mp
-                ctx = mp.get_context("spawn")
-                tasks = []
-                for group in groups:
-                    consensus = group.ingroup_consensus()
-                    tasks.append(("".join(consensus.values()),
-                                  len(consensus["forward"]),
-                                  len(consensus["diagnostic"])))
-                with ctx.Pool(min(args.cores, len(groups))) as pool:
-                    results = pool.starmap(
-                        _design_job, [(t, p3_args) for t in tasks])
-                for group, p3 in zip(groups, results):
-                    group.p3 = p3
-            else:
-                for group in groups:
-                    design_primers_for_group(group, **p3_args)
-        groups = [g for g in groups
-                  if g.p3["PRIMER_PAIR_NUM_RETURNED"] != 0]
+        if args.primer3:
+            from ..thermo.design import design_primers_for_group
+            with METRICS.stage("primer3", items=len(groups)):
+                if args.cores > 1 and len(groups) > 1:
+                    import multiprocessing as mp
+                    ctx = mp.get_context("spawn")
+                    tasks = []
+                    for group in groups:
+                        consensus = group.ingroup_consensus()
+                        tasks.append(("".join(consensus.values()),
+                                      len(consensus["forward"]),
+                                      len(consensus["diagnostic"])))
+                    with ctx.Pool(min(args.cores, len(groups))) as pool:
+                        results = pool.starmap(
+                            _design_job, [(t, p3_args) for t in tasks])
+                    for group, p3 in zip(groups, results):
+                        group.p3 = p3
+                else:
+                    for group in groups:
+                        design_primers_for_group(group, **p3_args)
+            groups = [g for g in groups
+                      if g.p3["PRIMER_PAIR_NUM_RETURNED"] != 0]
 
-    print(render.csv_header(primer3=bool(args.primer3)), file=out_csv)
-    found = 0
-    for group in groups:
-        print(render.render_csv(group), file=out_csv)
-        if out_align is not None:
-            print(render.render_alignment(group, enable_dot=args.dot_alignment),
-                  file=out_align)
-        found += 1
-
-    if close_csv:
-        out_csv.close()
-    if out_align is not None and close_align:
-        out_align.close()
+        with METRICS.stage("render", items=len(groups)):
+            print(render.csv_header(primer3=bool(args.primer3)),
+                  file=out_csv)
+            for group in groups:
+                print(render.render_csv(group), file=out_csv)
+                if out_align is not None:
+                    print(render.render_alignment(
+                        group, enable_dot=args.dot_alignment), file=out_align)
+            if close_csv:
+                out_csv.close()
+            if out_align is not None and close_align:
+                out_align.close()
 
     if args.verbose:
         dt = time.time() - start_t
         print("Stage timings:", file=sys.stderr)
         METRICS.report()
-        print(f"=> Found {found:,} regions in {dt:.2f} seconds", file=sys.stderr)
+        print(f"=> Found {len(groups):,} regions in {dt:.2f} seconds",
+              file=sys.stderr)
     return 0
 
 

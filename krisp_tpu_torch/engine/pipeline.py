@@ -40,8 +40,11 @@ fused path runs ``parallel.distributed.sharded_intersect_pipeline`` over a
 mesh of the cards (``_mesh_for_run``), or over the ``mesh`` the caller
 passes (a mesh may repeat a device).
 
-``measure_device_rate`` times the fused path's device stages alone, on
-inputs already on the card.
+Every host step of a fused search is a stage of ``metrics.GLOBAL`` beside
+the device stages, none inside another: ``read_fasta``, ``detect_bits``
+(bases scanned), ``stack`` (bytes of the padded array), the upload and
+keys, ``pull``, ``decode`` (survivor rows), ``decode+group`` (survivor
+rows) and ``filter`` (groups examined); the CLI adds ``render``.
 """
 
 from __future__ import annotations
@@ -207,13 +210,23 @@ def takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh=None) -> bool:
     return ok if mesh is None else mesh.all_true(ok)
 
 
-def _stack(buffers) -> np.ndarray:
-    """Every genome buffer zero-padded to one bucket: uint8[n_files, P]."""
-    stacked = np.zeros((len(buffers), bucket_size(max(b.size
-                                                      for b in buffers))),
-                       np.uint8)
-    for i, buf in enumerate(buffers):
-        stacked[i, :buf.size] = buf
+def _read_genomes(paths):
+    """The genome buffers of the FASTA ``paths`` and the per-base encoding
+    width they take (``detect_bits``)."""
+    with METRICS.stage("read_fasta"):
+        buffers = [load_buffer(path) for path in paths]
+    with METRICS.stage("detect_bits", items=sum(b.size for b in buffers)):
+        bits = detect_bits(buffers)
+    return buffers, bits
+
+
+def _stack(buffers, width: int) -> np.ndarray:
+    """Every genome buffer zero-padded to ``width`` bases:
+    uint8[n_files, width]."""
+    with METRICS.stage("stack", items=len(buffers) * width):
+        stacked = np.zeros((len(buffers), width), np.uint8)
+        for i, buf in enumerate(buffers):
+            stacked[i, :buf.size] = buf
     return stacked
 
 
@@ -244,7 +257,7 @@ def _fused_table(buffers, layout: KeyLayout, geom: KmerGeometry,
     table.  2-bit keys are packed on the host and uploaded at 3 bits a
     base; 4-bit keys (any IUPAC letter in any genome) upload the bytes as
     they are.  Returns int32[W, n_files * 2 n_win]."""
-    stacked = _stack(buffers)
+    stacked = _stack(buffers, bucket_size(max(b.size for b in buffers)))
     n_files, pad = stacked.shape
     n_win = 2 * (pad - geom.total + 1)
     # one table filled genome by genome: no per-genome tables to concatenate
@@ -267,10 +280,8 @@ def genome_key_tables(paths, geom: KmerGeometry, omit_soft: bool = False,
     build their one key table.  Returns (int32[W, n_files * 2 n_win]
     table, KeyLayout)."""
     dev = resolve_device(device)
-    with METRICS.stage("read_fasta"):
-        buffers = [load_buffer(path) for path in paths]
-    layout = KeyLayout(geom.left, geom.mid, geom.right, detect_bits(buffers),
-                       len(paths))
+    buffers, bits = _read_genomes(paths)
+    layout = KeyLayout(geom.left, geom.mid, geom.right, bits, len(paths))
     return _fused_table(buffers, layout, geom, omit_soft, dev), layout
 
 
@@ -387,10 +398,12 @@ def _decode_and_group(words_h, cnt_h, gid_h, layout: KeyLayout,
     fused and staged paths, then ``_group_epilogue``."""
     n_keep, bits = gid_h.size, layout.bits
     off_flank, off_mid = layout.base_offsets()
-    flank_dec = dna.decode_bits(words_h, off_flank, bits)
-    mid_dec = (dna.decode_bits(words_h, off_mid, bits) if geom.mid > 0
-               else [""] * n_keep)
-    fid_h = dna.extract_bit_field(words_h, layout.file_off, layout.file_bits)
+    with METRICS.stage("decode", items=n_keep):
+        flank_dec = dna.decode_bits(words_h, off_flank, bits)
+        mid_dec = (dna.decode_bits(words_h, off_mid, bits) if geom.mid > 0
+                   else [""] * n_keep)
+        fid_h = dna.extract_bit_field(words_h, layout.file_off,
+                                      layout.file_bits)
     return _group_epilogue(n_keep, gid_h, mid_dec, flank_dec, fid_h, cnt_h,
                            geom, tags, ingroup_tags, has_outgroup,
                            ingroup_filter)
@@ -436,10 +449,8 @@ def run_pipeline(files, outgroup, geom: KmerGeometry, omit_soft: bool = False,
                 frozenset(simple_name(f) for f in files), len(outgroup) > 0,
                 ingroup_filter)
 
-    with METRICS.stage("read_fasta"):
-        buffers = [load_buffer(path) for path in all_files]
-    layout = KeyLayout(geom.left, geom.mid, geom.right, detect_bits(buffers),
-                       n_files)
+    buffers, bits = _read_genomes(all_files)
+    layout = KeyLayout(geom.left, geom.mid, geom.right, bits, n_files)
     tmp_workdir = None
     if workdir is None:
         if mesh is None:
@@ -491,9 +502,7 @@ def _sharded(buffers, layout: KeyLayout, geom: KmerGeometry,
     from ..parallel.distributed import sharded_intersect_pipeline
     n_sh = mesh.size
     chunk = _shard_chunk([b.size for b in buffers], geom.total, n_sh)
-    stacked = np.zeros((len(buffers), n_sh * chunk), np.uint8)
-    for i, buf in enumerate(buffers):
-        stacked[i, :buf.size] = buf
+    stacked = _stack(buffers, n_sh * chunk)
     with METRICS.stage("device_pipeline_sharded",
                        items=2 * len(buffers) * n_sh * chunk):
         return sharded_intersect_pipeline(mesh, stacked, geom.left,
@@ -505,7 +514,7 @@ def _group_epilogue(n_keep, gid_h, mid_dec, flank_dec, fid_h, cnt_h, geom,
                     tags, ingroup_tags, has_outgroup, ingroup_filter):
     """Host epilogue: decode survivor rows into FlankGroup objects + the
     ingroup filter."""
-    with METRICS.stage("decode+group"):
+    with METRICS.stage("decode+group", items=n_keep):
         render_ingroup = frozenset(ingroup_tags) if has_outgroup else None
 
         # rows arrive (flank, file, mid-within-file); rebuild each group in
@@ -535,60 +544,7 @@ def _group_epilogue(n_keep, gid_h, mid_dec, flank_dec, fid_h, cnt_h, geom,
     if ingroup_filter:
         # Diagnostic ingroup-unique-column filter on the survivor set
         # (parity: filterAlignments.py:4-40 over Amplicon.py:495-521).
-        groups = [g for g in groups if g.ingroup_unique_columns()]
+        with METRICS.stage("filter", items=len(groups)):
+            groups = [g for g in groups if g.ingroup_unique_columns()]
     return groups
 
-
-def measure_device_rate(files, outgroup, geom: KmerGeometry,
-                        omit_soft: bool = False, reps: int = 5,
-                        device="cuda"):
-    """The fused path's device throughput (krisp_tpu's
-    ``measure_device_rate``), in k-mers/s over the padded window count.
-
-    The genome inputs go to the card once (the host pack and upload are
-    left out); one call is the device work of a run: extract every
-    genome's keys, then ``global_stage``.  Three calls back to back and one
-    call, each between CUDA events, in ``reps`` turns: the smallest
-    difference is the time of two calls, so launch latency and the stage's
-    own host syncs count once on both sides and cancel."""
-    dev = resolve_device(device)
-    all_files = list(files) + list(outgroup)
-    n_files = len(all_files)
-    buffers = [load_buffer(path) for path in all_files]
-    layout = KeyLayout(geom.left, geom.mid, geom.right, detect_bits(buffers),
-                       n_files)
-    stacked = _stack(buffers)
-    del buffers
-    pad = stacked.shape[1]
-    n_win = 2 * (pad - geom.total + 1)
-    inputs = [_upload_genome(row, layout.bits, omit_soft, dev)
-              for row in stacked]
-    tables = _encoding_tables(layout.bits, omit_soft)
-
-    def call():
-        flat = torch.empty((layout.n_words, n_files * n_win),
-                           dtype=torch.int32, device=dev)
-        for f, inp in enumerate(inputs):
-            _extract_genome(inp, f, n_files, layout, geom, tables,
-                            flat[:, f * n_win:(f + 1) * n_win])
-        return global_stage([flat], layout, n_files)
-
-    def timed(n_calls):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n_calls):
-            call()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    call()   # warm-up: the kernel library and the allocator's pools
-    best = None
-    for _ in range(reps):
-        extra = timed(3) - timed(1)
-        if extra > 0:
-            best = extra if best is None else min(best, extra)
-    if not best:
-        return float("nan")
-    return 2 * n_files * n_win / best

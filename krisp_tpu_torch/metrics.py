@@ -1,10 +1,13 @@
-"""Per-stage wall timers and profiler traces (the ``krisp_tpu.metrics``
-API).
+"""Per-stage wall timers, program spans and profiler traces (the
+``krisp_tpu.metrics`` API).
 
 A stage given a CUDA ``device`` synchronises that device at its end, so its
 wall time covers the device work it queued and not only the enqueue.
-``profiler_trace`` (``--profile-dir``) records a ``torch.profiler`` trace
-in place of krisp_tpu's JAX profiler trace.
+While a ``torch.profiler`` records, each stage is also a span
+``krisp:<name>`` over the same interval (``span``), so the trace puts the
+card's idle time to the stage the host was in; with no profiler a span
+costs one flag check.  ``profiler_trace`` (``--profile-dir``) records a
+``torch.profiler`` trace in place of krisp_tpu's JAX profiler trace.
 """
 
 from __future__ import annotations
@@ -16,6 +19,21 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import torch
+from torch.profiler import record_function
+
+#: prefix of a stage's span: the benchmark's own stage spans are
+#: ``stage:<name>``, so the two never read as one another
+SPAN_PREFIX = "krisp:"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` span ``name`` over the ``with`` block while a
+    profiler records, on the clock of the card's work in its trace; while
+    none records, nothing."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @dataclass
@@ -35,15 +53,16 @@ class Metrics:
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 0, device=None):
         stat = self.stages.setdefault(name, StageStat())
-        t0 = time.perf_counter()
-        try:
-            yield stat
-        finally:
-            if device is not None and torch.device(device).type == "cuda":
-                torch.cuda.synchronize(device)
-            stat.seconds += time.perf_counter() - t0
-            stat.calls += 1
-            stat.items += items
+        with span(SPAN_PREFIX + name):
+            t0 = time.perf_counter()
+            try:
+                yield stat
+            finally:
+                if device is not None and torch.device(device).type == "cuda":
+                    torch.cuda.synchronize(device)
+                stat.seconds += time.perf_counter() - t0
+                stat.calls += 1
+                stat.items += items
 
     def report(self, stream=None):
         stream = stream or sys.stderr

@@ -42,7 +42,6 @@ def test_port_imports_without_jax():
             "import krisp_tpu_torch.parallel.vcf_shard\n"
             "import krisp_tpu_torch.parallel.multihost\n"
             "import krisp_tpu_torch.runtime, krisp_tpu_torch.metrics\n"
-            "from krisp_tpu_torch.engine.pipeline import measure_device_rate\n"
             "krisp_tpu_torch.runtime.setup('cpu')\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not [m for m in sys.modules if m == 'krisp_tpu'\n"

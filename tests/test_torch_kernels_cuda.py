@@ -565,22 +565,6 @@ def test_sharded_vcf_cuda_matches_cpu(dev, shard):
     assert torch.equal(got.cpu(), want)
 
 
-def test_measure_device_rate_on_the_card(dev, tmp_path):
-    """``measure_device_rate`` returns a finite rate on the card."""
-    from krisp_tpu_torch.engine.pipeline import (KmerGeometry,
-                                                 measure_device_rate)
-    rng = np.random.default_rng(2)
-    paths = []
-    for f in range(3):
-        p = tmp_path / f"g{f}.fasta"
-        p.write_text(">g\n" + "".join(rng.choice(list("ACGT"), 200_000))
-                     + "\n")
-        paths.append(str(p))
-    rate = measure_device_rate(paths[:2], paths[2:], KmerGeometry(25, 1, 2),
-                               reps=3, device=dev)
-    assert np.isfinite(rate) and rate > 0
-
-
 def test_default_budget_on_the_card(dev, monkeypatch):
     """With KRISP_TPU_HBM_BUDGET unset the budget is the card's own:
     positive and below its total memory."""
