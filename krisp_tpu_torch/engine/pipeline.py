@@ -3,10 +3,10 @@
 
 Fused path (the whole key table on the card at once):
 
-  FASTA -> uint8 buffers -> per genome: 2-bit keys: host 2-bit pack +
-  validity bitmap, upload, window keys of both strands (CUDA kernel);
-  4-bit (IUPAC) keys: upload the bytes, window keys in torch ops -> one
-  table -> global stage -> pull -> host decode -> FlankGroup objects.
+  FASTA -> uint8 buffers -> per genome: upload the bytes, window keys of
+  both strands (2-bit keys: the window-key CUDA kernel on the bytes;
+  4-bit (IUPAC) keys: torch ops) -> one table -> global stage -> pull ->
+  host decode -> FlankGroup objects.
 
 The global stage is sort (CUDA kernel) -> survivor scan (CUDA kernel) ->
 compaction; wide keys (more than 2 words and a flank of 32 bits or more)
@@ -42,9 +42,10 @@ passes (a mesh may repeat a device).
 
 Every host step of a fused search is a stage of ``metrics.GLOBAL`` beside
 the device stages, none inside another: ``read_fasta``, ``detect_bits``
-(bases scanned), ``stack`` (bytes of the padded array), the upload and
-keys, ``pull``, ``decode`` (survivor rows), ``decode+group`` (survivor
-rows) and ``filter`` (groups examined); the CLI adds ``render``.
+(bases scanned), ``stack`` (bytes of the padded array), ``upload``
+(padded bytes a genome), ``extract`` (windows a genome), ``pull``,
+``decode`` (survivor rows), ``decode+group`` (survivor rows) and
+``filter`` (groups examined); the CLI adds ``render``.
 """
 
 from __future__ import annotations
@@ -63,13 +64,12 @@ from ..budget import (COMPACT_ROW_BYTES, KRISP_TPU_WINDOW_BYTES,
                       OWNER_ROW_BYTES, PREFILTER_ROW_BYTES, ROW_LIMIT,
                       device_budget, device_charge, sort_row_bytes,
                       table_bytes)
-from ..convert import keys_from_numpy, keys_to_numpy
+from ..convert import keys_to_numpy
 from ..device import devices_for_run, resolve_device
 from ..io.fasta import bucket_size, load_buffer, simple_name
 from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
 from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
-                             extract_keys_ascii, extract_keys_packed_in,
                              global_stage, prefilter_gate)
 from ..ops.scan import valid_rows
 from ..ops.sort import sort_words
@@ -230,33 +230,16 @@ def _stack(buffers, width: int) -> np.ndarray:
     return stacked
 
 
-def _upload_genome(row: np.ndarray, bits: int, omit_soft: bool, dev):
-    """One genome's input to the fused path on ``dev``: 2-bit keys upload
-    the host pack at 3 bits a base, 4-bit keys the bytes as they are."""
-    if bits == 2:
-        pk, vb = _pack_genomes_host(row[None], omit_soft)
-        return keys_from_numpy(pk, dev), torch.from_numpy(vb).to(dev)
-    return (torch.from_numpy(row).to(dev),)
-
-
-def _extract_genome(inputs, f: int, n_files: int, layout: KeyLayout,
-                    geom: KmerGeometry, tables, out: torch.Tensor):
-    """Genome ``f``'s sentinel-marked keys (both strands, genome id f) from
-    its ``_upload_genome`` inputs into ``out``."""
-    g = (geom.left, geom.mid, geom.right, layout.bits, n_files)
-    if layout.bits == 2:
-        extract_keys_packed_in(*inputs, f, *g, out=out)
-    else:
-        extract_keys_ascii(inputs[0], f, tables, *g, out=out)
-
-
 def _fused_table(buffers, layout: KeyLayout, geom: KmerGeometry,
                  omit_soft: bool, dev):
-    """Pad every genome buffer to one bucket, then per genome extract its
-    sentinel-marked keys (both strands, genome id = its index) into one
-    table.  2-bit keys are packed on the host and uploaded at 3 bits a
-    base; 4-bit keys (any IUPAC letter in any genome) upload the bytes as
-    they are.  Returns int32[W, n_files * 2 n_win]."""
+    """Pad every genome buffer to one bucket, then per genome upload its
+    bytes as they are and extract its sentinel-marked keys (both strands,
+    genome id = its index) into one table: 2-bit keys through the
+    window-key kernel's table mode, whose arithmetic validity equals
+    ``dna.base_validity_table(2, "Nn", omit_soft)`` on every byte a 2-bit
+    input holds; 4-bit keys (any IUPAC letter in any genome) through
+    ``window_keys_bits`` with the tables of ``_encoding_tables``.  Returns
+    int32[W, n_files * 2 n_win]."""
     stacked = _stack(buffers, bucket_size(max(b.size for b in buffers)))
     n_files, pad = stacked.shape
     n_win = 2 * (pad - geom.total + 1)
@@ -265,12 +248,13 @@ def _fused_table(buffers, layout: KeyLayout, geom: KmerGeometry,
                        device=dev)
     tables = _encoding_tables(layout.bits, omit_soft)
     for f in range(n_files):
-        with METRICS.stage("pack+upload" if layout.bits == 2 else "upload",
-                           items=pad, device=dev):
-            inputs = _upload_genome(stacked[f], layout.bits, omit_soft, dev)
+        with METRICS.stage("upload", items=pad, device=dev):
+            buffer = torch.from_numpy(stacked[f]).to(dev)
         with METRICS.stage("extract", items=n_win, device=dev):
-            _extract_genome(inputs, f, n_files, layout, geom, tables,
-                            flat[:, f * n_win:(f + 1) * n_win])
+            _all_window_keys(buffer, f, geom.left, geom.mid, geom.right,
+                             layout.bits, n_files, tables, omit_soft,
+                             out=flat[:, f * n_win:(f + 1) * n_win])
+        del buffer
     return flat
 
 

@@ -2,8 +2,9 @@
 (``krisp_tpu/ops/intersect.py``).
 
 Every genome's windows become sentinel-marked KeyLayout keys with the genome
-id in the key (``extract_keys_packed_in`` from the 2-bit host pack,
-``extract_keys_ascii`` from the raw bytes on the 4-bit route); the global
+id in the key (``_all_window_keys`` on the genome's raw bytes, on every
+route and at both widths; ``extract_keys_packed_in`` reads krisp_tpu's
+2-bit host pack, ``extract_keys_ascii`` the bytes at 4 bits); the global
 stage (``global_stage``) sorts them, marks survivors (flank groups present
 in all genomes) and compacts them.  Wide keys first pass the prefilter
 (``prefilter_rows``): it sorts one prefix|genome word with row ids, keeps

@@ -243,3 +243,71 @@ def test_cli_devices_2_runs_on_one_device(tmp_path, flag):
                           str(csv)]) == 0
         outs.append(csv.read_bytes())
     assert outs[1] == outs[0] and outs[0].count(b"\n") > 1
+
+
+def _two_bit_buffers(seed, sizes):
+    """Genome buffers of the given sizes over A/C/G/T/N in both cases,
+    mostly upper-case so that long windows stay valid under omit_soft."""
+    rng = np.random.default_rng(seed)
+    p = [0.245] * 4 + [0.02 / 6] * 6
+    return [rng.choice(np.frombuffer(b"ACGTNacgtn", np.uint8), size=n, p=p)
+            for n in sizes]
+
+
+@pytest.mark.parametrize("geom", [(25, 1, 2), (30, 40, 30)])
+@pytest.mark.parametrize("omit_soft", [False, True])
+def test_fused_table_on_bytes_equals_host_pack(geom, omit_soft):
+    """The fused table built from each genome's uploaded bytes equals the
+    table built genome by genome from krisp_tpu's 2-bit host pack and its
+    unpack (``_pack_genomes_host`` + ``extract_keys_packed_in``), zero
+    padding of ``_stack`` included."""
+    import torch
+
+    from krisp_tpu_torch.convert import keys_from_numpy
+    from krisp_tpu_torch.io.fasta import bucket_size
+    from krisp_tpu_torch.ops import intersect as TI
+    from krisp_tpu_torch.ops.encode import KeyLayout
+    from krisp_tpu_torch.ops.pack import SENTINEL
+    buffers = _two_bit_buffers(sum(geom), [700, 3001, 1500])
+    assert TP.detect_bits(buffers) == 2
+    n_files = len(buffers)
+    layout = KeyLayout(*geom, 2, n_files)
+    got = TP._fused_table(buffers, layout, TP.KmerGeometry(*geom), omit_soft,
+                          torch.device("cpu"))
+    stacked = TP._stack(buffers, bucket_size(max(b.size for b in buffers)))
+    want = []
+    for f in range(n_files):
+        pk, vb = TP._pack_genomes_host(stacked[f:f + 1], omit_soft)
+        want.append(TI.extract_keys_packed_in(
+            keys_from_numpy(pk, "cpu"), torch.from_numpy(vb), f, *geom, 2,
+            n_files))
+    want = torch.cat(want, dim=1)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    # the case holds valid windows, not only sentinel rows
+    assert (got[0] != SENTINEL).any()
+
+
+def test_fused_search_uploads_bytes_and_never_unpacks(tmp_path, monkeypatch):
+    """A 2-bit fused search records one ``upload`` a genome of its padded
+    bytes, no ``pack+upload``, and never unpacks a 2-bit pack."""
+    from krisp_tpu_torch.io.fasta import bucket_size, load_buffer
+    from krisp_tpu_torch.metrics import GLOBAL as METRICS
+    from krisp_tpu_torch.ops import intersect as TI
+
+    def unpack(*_):
+        raise AssertionError("the fused path unpacked a 2-bit pack")
+    monkeypatch.setattr(TI, "unpack_genomes", unpack)
+    geom = (25, 1, 2)
+    paths = _genomes(tmp_path, 5, geom)
+    METRICS.reset()
+    table, layout = TP.genome_key_tables(paths, TP.KmerGeometry(*geom),
+                                         device="cpu")
+    assert layout.bits == 2
+    width = bucket_size(max(load_buffer(p).size for p in paths))
+    st = METRICS.stages
+    assert "pack+upload" not in st
+    assert st["upload"].calls == len(paths)
+    assert st["upload"].items == len(paths) * width
+    assert st["extract"].calls == len(paths)
+    assert table.shape[1] == len(paths) * 2 * (width - sum(geom) + 1)
