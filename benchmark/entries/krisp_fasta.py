@@ -1,8 +1,9 @@
 """Entry ``krisp_fasta``: one search is
 ``krisp_tpu_torch.cli.krisp_fasta.main(argv)`` in this process, as a user
-runs ``krisp_fasta <ingroup> --outgroup <outgroup> <geometry> -s <csv> -o
-<alignment>``: no primer design, no work directory, no ``KRISP_TPU_*``
-variable, so the card's own budget routes the search.
+runs ``krisp_fasta <ingroup> --outgroup <outgroup> <geometry> --devices
+<chips> -s <csv> -o <alignment>``: no primer design, no work directory, no
+``KRISP_TPU_*`` variable, so the cards' own budget routes the search over
+the cell's ``chips`` cards.
 
 The work of a search is every window it weighs, both strands of every
 genome (``problem.kmers``).  ``check`` works the answer out again with the
@@ -20,10 +21,10 @@ from ..reference import fasta_search
 
 class Entry:
     def __init__(self, config: dict, traffic: dict, seed: int,
-                 workdir: Path, device: str = "cuda"):
+                 workdir: Path, device: str = "cuda", chips: int = 1):
         self.config, self.traffic, self.seed = config, traffic, seed
         self.workdir = Path(workdir)
-        self.device = device
+        self.device, self.chips = device, chips
         w = config["window"]
         self.geom = (int(w["left"]), int(w["mid"]), int(w["right"]))
         self.L = sum(self.geom)
@@ -49,7 +50,8 @@ class Entry:
         csv, align = out / f"{tag}.csv", out / f"{tag}.txt"
         self.outputs.append((csv, align))
         argv = [*self.genomes.ingroup, "--outgroup", *self.genomes.outgroup,
-                *self.config["flags"], "-s", str(csv), "-o", str(align)]
+                *self.config["flags"], "--devices", str(self.chips),
+                "-s", str(csv), "-o", str(align)]
         if self.device != "cuda":
             argv += ["--device", self.device]
         return argv

@@ -18,6 +18,12 @@ closes at the end of the first search that ends after ``seconds``, so it
 holds whole searches only.  ``--trace 1`` runs the same window under
 ``torch.profiler`` and reports the per-layer metrics in place of the
 end-to-end ones.
+
+The cell's ``chips`` reaches the program as ``--devices``.  A card counts
+as used when its allocator served an allocation inside the window; a run
+whose count of cards used differs from ``chips`` raises ``CardsUsed`` and
+reports nothing.  The peak is the fullest card's; the trace's busy time
+and idle gaps are each card's own, averaged over the cards.
 """
 
 from __future__ import annotations
@@ -57,9 +63,15 @@ class Run:
     searches: list = field(default_factory=list)    # per search: wall_s,
     # work, stages {name: {"seconds", "calls", "items"}}
     stages: dict = field(default_factory=dict)      # summed over the window
-    peak_bytes: int | None = None
+    peak_bytes: int | None = None                   # the fullest card's
+    card_peaks: list = field(default_factory=list)  # bytes, every card
+    cards_used: list = field(default_factory=list)  # cards that allocated
     problem: dict = field(default_factory=dict)     # entry.problem()
     trace: Trace | None = None
+
+
+class CardsUsed(RuntimeError):
+    """The window used another number of cards than the cell asks for."""
 
 
 def log(*parts):
@@ -142,12 +154,40 @@ def _stage_spans(metrics):
         del metrics.stage
 
 
-def _sync(device):
+def _sync(device, chips: int = 1):
+    """Wait for every card of the cell."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        for i in range(chips):
+            torch.cuda.synchronize(i)
 
 
-def _window(entry, seconds: float, device, metrics, run: Run) -> int:
+def _allocations() -> list[int]:
+    """Allocations each card's allocator has served so far."""
+    return [torch.cuda.memory_stats(i).get("allocation.all.allocated", 0)
+            for i in range(torch.cuda.device_count())]
+
+
+def _window_start() -> list[int]:
+    """Every card's peak reset; the allocations served so far."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    return _allocations()
+
+
+def _window_end(run: Run, before: list[int]) -> None:
+    """The cards that allocated inside the window (a tensor left over from
+    set-up counts for nothing) and every card's peak, read with the cards
+    in sync."""
+    after = _allocations()
+    run.cards_used = [i for i, (a, b) in enumerate(zip(before, after))
+                      if b > a]
+    run.card_peaks = [torch.cuda.max_memory_allocated(i)
+                      for i in range(len(after))]
+    run.peak_bytes = max(run.card_peaks)
+
+
+def _window(entry, seconds: float, device, metrics, run: Run,
+            chips: int = 1) -> int:
     """Searches back to back until one ends after ``seconds``; returns
     the searches that failed (the window stops at the first)."""
     start = time.perf_counter()
@@ -157,7 +197,7 @@ def _window(entry, seconds: float, device, metrics, run: Run) -> int:
         t0 = time.perf_counter()
         try:
             work = entry.search(f"search{i}")
-            _sync(device)
+            _sync(device, chips)
         except Exception:  # noqa: BLE001 - a failed search is reported
             log(traceback.format_exc())
             run.window_s = time.perf_counter() - start
@@ -172,12 +212,19 @@ def _window(entry, seconds: float, device, metrics, run: Run) -> int:
             return 0
 
 
-def _device_info(device, peak) -> dict:
+def _device_info(device, run: Run) -> dict:
+    """The result's ``device``: the cards the window used, their one name
+    and the fullest card's peak."""
     if torch.device(device).type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 1,
                 "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": int(peak)}
+    names = sorted({torch.cuda.get_device_name(i) for i in run.cards_used})
+    if len(names) > 1:
+        raise CardsUsed(f"bench: the cards used differ: {names}")
+    return {"platform": "gpu",
+            "kind": names[0] if names else torch.cuda.get_device_name(0),
+            "count": len(run.cards_used),
+            "memory_peak_bytes": int(run.peak_bytes or 0)}
 
 
 def _power_limit() -> str:
@@ -192,9 +239,12 @@ def _power_limit() -> str:
 
 def run_cell(config: dict, traffic: dict, name: str, end_to_end: list,
              per_layer: list, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", t_start: float | None = None) -> dict:
-    """One run of one cell; returns the result line's object.  ``t_start``
-    is the process's start on ``time.perf_counter``'s clock."""
+             device: str = "cuda", t_start: float | None = None,
+             chips: int = 1) -> dict:
+    """One run of one cell on ``chips`` cards; returns the result line's
+    object.  ``t_start`` is the process's start on ``time.perf_counter``'s
+    clock.  Raises ``CardsUsed`` where the window used another number of
+    cards."""
     t_start = time.perf_counter() if t_start is None else t_start
     from krisp_tpu_torch import runtime
     from krisp_tpu_torch.metrics import GLOBAL as METRICS
@@ -207,11 +257,11 @@ def run_cell(config: dict, traffic: dict, name: str, end_to_end: list,
         runtime.setup(device)
         marks.append(("context+library", time.perf_counter()))
         entry = load_entry(config["entry"])(config, traffic, seed, workdir,
-                                            device)
+                                            device, chips)
         entry.setup()
         marks.append(("inputs", time.perf_counter()))
         entry.search("warmup")
-        _sync(device)
+        _sync(device, chips)
         marks.append(("warm-up", time.perf_counter()))
         run = Run(setup_s=marks[-1][1] - t_start, problem=entry.problem())
         parts = ", ".join(f"{k} {b - a:.3f}" for (_, a), (k, b)
@@ -220,8 +270,8 @@ def run_cell(config: dict, traffic: dict, name: str, end_to_end: list,
             f"({parts})")
 
         METRICS.reset()
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
+        allocations = _window_start() if on_card else []
+        cpu0 = time.process_time()
         failed = 0
         if trace:
             from torch.profiler import ProfilerActivity, profile, \
@@ -231,23 +281,37 @@ def run_cell(config: dict, traffic: dict, name: str, end_to_end: list,
                 acts.append(ProfilerActivity.CUDA)
             with profile(activities=acts) as prof, _stage_spans(METRICS):
                 with record_function(WINDOW_SPAN):
-                    failed = _window(entry, seconds, device, METRICS, run)
+                    failed = _window(entry, seconds, device, METRICS, run,
+                                     chips)
             path = workdir / "trace.json"
             prof.export_chrome_trace(str(path))
             del prof
-            run.trace = Trace.load(path)
+            run.trace = Trace.load(path, chips)
             path.unlink()
         else:
-            failed = _window(entry, seconds, device, METRICS, run)
+            failed = _window(entry, seconds, device, METRICS, run, chips)
         run.stages = _delta(_snapshot(METRICS), {})
-        run.peak_bytes = torch.cuda.max_memory_allocated() if on_card else None
+        cpu_s = time.process_time() - cpu0
+        if on_card:
+            _sync(device, chips)
+            _window_end(run, allocations)
         walls = [s["wall_s"] for s in run.searches]
         if walls:
             log(f"bench: {len(walls)} searches in {run.window_s:.4f} s; "
                 f"a search: median {statistics.median(walls):.4f} s, "
-                f"slowest {max(walls):.4f} s")
+                f"slowest {max(walls):.4f} s; process CPU {cpu_s:.4f} s")
+            log("bench: stage seconds over the window: " + ", ".join(
+                f"{k} {v['seconds']:.4f}" for k, v in run.stages.items()))
         if on_card:
             log(f"bench: card {_power_limit()}")
+            log(f"bench: cards used {run.cards_used} of "
+                f"{len(run.card_peaks)}; peaks {run.card_peaks} bytes")
+        info = _device_info(device, run)
+        if info["count"] != chips:
+            raise CardsUsed(
+                f"bench: the cell asks for {chips} card(s), cards "
+                f"{list(range(chips))}; the window used {info['count']}: "
+                f"cards {run.cards_used} of {len(run.card_peaks) or 1}")
 
         gc.collect()
         if on_card:
@@ -265,7 +329,7 @@ def run_cell(config: dict, traffic: dict, name: str, end_to_end: list,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         result = {"correct": ok, "attempted": len(run.searches) + failed,
                   "failed": failed, "metrics": metrics,
-                  "device": _device_info(device, run.peak_bytes or 0)}
+                  "device": info}
         if trace and run.trace is not None:
             result["device"]["busy_s"] = run.trace.busy_s
             result["device"]["window_s"] = run.trace.window_s

@@ -1,5 +1,6 @@
 """device_idle_pct: the share of the traced window in which no kernel,
-copy or memset ran on the card (``torch.profiler``'s device timeline)."""
+copy or memset ran on a card (``torch.profiler``'s device timeline), each
+card's own, averaged over the cell's cards (``Trace.busy_s``)."""
 
 
 def read(run):

@@ -1,6 +1,8 @@
-"""pack_upload_s: seconds a search in the host 2-bit pack and upload
-(stage ``pack+upload``) or the upload of the bytes on the 4-bit route
-(stage ``upload``); both stages synchronise the card."""
+"""pack_upload_s: seconds a search in stage ``upload``: each genome's
+padded bytes copied to the card as they are, on the 2-bit and the 4-bit
+route alike; the stage synchronises the card.  Stage ``pack+upload``, the
+host 2-bit pack that the program ran before it uploaded the bytes, is read
+too, so an older tree reads on the same scale."""
 
 from benchmark.stages import per_search
 

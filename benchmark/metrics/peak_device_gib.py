@@ -1,5 +1,6 @@
-"""peak_device_gib: ``torch.cuda.max_memory_allocated()`` over the window
-(reset at its start), in GiB."""
+"""peak_device_gib: the fullest card's ``torch.cuda.max_memory_allocated``
+over the window (every card's reset at its start), in GiB; on one card
+that card's."""
 
 
 def read(run):

@@ -1,7 +1,8 @@
 """untracked_s: seconds a search outside every stage of the program: its
-wall time less the sum of its stages (the CLI's glue, ``detect_bits``,
-``_stack``, the survivors' ``dna.decode_bits``, the diagnostic filter and
-the render)."""
+wall time less the sum of its stages.  Every host step of a search is a
+stage of its own (``detect_bits``, ``stack``, ``decode``, ``filter``,
+``render`` among them), so what is left is the CLI's glue: runtime
+set-up, arguments, routing and freeing the search's objects."""
 
 
 def read(run):

@@ -4,7 +4,10 @@ published peak.
 
 A roofline share is ``bytes / PEAK_BYTES_PER_S`` over the device time of
 the kernels that do the work; none of these kernels does enough
-arithmetic to be bound by operations.  The bytes are those of the problem,
+arithmetic to be bound by operations.  Over several cards that time sums
+every launch on every card (``Trace.kernel_seconds``), so the share is
+the bytes over one card's peak times card-seconds: the same share of each
+card's peak, whatever the card count.  The bytes are those of the problem,
 so a later kernel that does the same work is measured against the same
 bytes.
 """

@@ -4,10 +4,12 @@ on:
     python benchmark/run.py --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
 
-Prints the result as the last line of standard output (README.md).  Exits
-with a code other than 0 and prints no result where there is no CUDA card,
-fewer cards than the cell asks for, no ``krisp_tpu_torch`` beside this
-folder, or a module of JAX or of the JAX package loaded at the end.
+Prints the result as the last line of standard output (README.md).  The
+program runs on the cell's ``chips`` cards (``--devices``).  Exits with a
+code other than 0 and prints no result where there is no CUDA card, fewer
+cards than the cell asks for, a window that used another number of cards
+than it asks for, no ``krisp_tpu_torch`` beside this folder, or a module
+of JAX or of the JAX package loaded at the end.
 """
 
 import time
@@ -57,11 +59,16 @@ def main(argv=None) -> int:
               f" not from {ROOT}", file=sys.stderr)
         return 2
 
-    result = harness.run_cell(
-        config, traffic, args.workload,
-        harness.cell_metrics(manifest, args.workload, "end_to_end"),
-        harness.cell_metrics(manifest, args.workload, "per_layer"),
-        args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+    try:
+        result = harness.run_cell(
+            config, traffic, args.workload,
+            harness.cell_metrics(manifest, args.workload, "end_to_end"),
+            harness.cell_metrics(manifest, args.workload, "per_layer"),
+            args.seed, args.seconds, bool(args.trace), "cuda", T_START,
+            cell["chips"])
+    except harness.CardsUsed as e:
+        print(e, file=sys.stderr)
+        return 5
     found = harness.forbidden_modules()
     if found:
         print(f"bench: modules of JAX or krisp_tpu loaded: {found}",

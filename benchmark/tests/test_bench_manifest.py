@@ -19,6 +19,7 @@ KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
         "per_layer": {"name", "unit", "better", "source", "layer", "moves"}}
 E2E = {m["name"] for m in M["end_to_end"]}
 CELLS = {w["name"] for w in M["workloads"]}
+RATE = next(m for m in M["end_to_end"] if m["name"] == "kmers_per_s")
 
 
 def _line(text, limit=200):
@@ -112,9 +113,11 @@ def test_per_layer_metrics_resolve():
     for m in M["per_layer"]:
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
-        assert m["moves"] in E2E and m["moves"] != "setup_s"
+        assert m["moves"] in E2E
         mover = next(e for e in M["end_to_end"] if e["name"] == m["moves"])
         cells = set(m["workloads"])
+        if m["moves"] == "setup_s":   # only where the rate is not end to end
+            assert not cells & set(RATE["workloads"]), m["name"]
         assert cells <= CELLS
         assert cells <= set(mover.get("workloads", CELLS))
         if m["name"].endswith("_roofline") or "roofline" in m["name"]:
@@ -146,3 +149,17 @@ def test_run_seconds_fits_the_full_check():
     """24 cells at this length fit the check's 43,200 s."""
     runs = 2 + 14 * 24
     assert runs * (M["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_the_rate_is_end_to_end_or_per_layer(cell):
+    """A cell whose rate spreads past any bound reports it per layer, as
+    ``kmers_per_s.<mix>``, and reads every stage there too."""
+    from benchmark import harness
+    e2e = {m["name"] for m in harness.cell_metrics(M, cell, "end_to_end")}
+    layer = {m["name"] for m in harness.cell_metrics(M, cell, "per_layer")}
+    mix = next(w["traffic"] for w in M["workloads"] if w["name"] == cell)
+    assert ("kmers_per_s" in e2e) != (f"kmers_per_s.{mix}" in layer)
+    if "kmers_per_s" not in e2e:
+        assert {n + "." + mix for n in ("decode_group_s", "read_fasta_s",
+                                         "device_idle_pct")} <= layer
