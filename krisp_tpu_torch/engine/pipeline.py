@@ -14,11 +14,12 @@ first pass the one-word prefix prefilter and run that stage on the rows it
 keeps.
 
 Staged (out-of-core) path, taken with a ``workdir`` or where the fused
-path does not fit (``takes_fused``: on a card its table must hold fewer
-rows than the kernels take and its peak, ``fused_charge``, must fit the
-card's budget, ``budget.device_budget``; on the CPU krisp_tpu's rule, 56
-bytes a window against ``KRISP_TPU_HBM_BUDGET``, default 8 GiB; over a
-process group every process takes the route that all of them fit):
+path does not fit (``takes_fused``: on a card its table, over a mesh each
+shard's, must hold fewer rows than the kernels take and its peak,
+``fused_charge``, must fit the card's budget, ``budget.device_budget``;
+on the CPU krisp_tpu's rule, 56 bytes a window against
+``KRISP_TPU_HBM_BUDGET``, default 8 GiB; over a process group every
+process takes the route that all of them fit):
 
   per genome, chunks of ``KRISP_TPU_CHUNK_BASES`` window starts (default
   64 Mb): upload the bytes, window keys, sort, duplicate collapse, pull ->
@@ -45,7 +46,10 @@ the device stages, none inside another: ``read_fasta``, ``detect_bits``
 (bases scanned), ``stack`` (bytes of the padded array), ``upload``
 (padded bytes a genome), ``extract`` (windows a genome), ``pull``,
 ``decode`` (survivor rows), ``decode+group`` (survivor rows) and
-``filter`` (groups examined); the CLI adds ``render``.
+``filter`` (groups examined); the CLI adds ``render``.  The sharded
+path's steps are stages too (``parallel.distributed``): ``upload``,
+``extract``, ``sort``, ``owner``, ``exchange``, ``merge``, ``scan`` and
+``pull``, each over every shard before the next begins.
 """
 
 from __future__ import annotations
@@ -162,12 +166,15 @@ def fused_charge(sizes, layout: KeyLayout, L: int,
     genome padded to the largest one's bucket, both strands) and the
     device's peak: the sort, the compaction with every row a survivor
     and, where the prefilter runs, its temporaries and its gather.  A mesh
-    of ``n_shards`` shards: the rows of every shard's table together as
-    ``_sharded`` allocates them (every genome padded to ``n_shards``
-    slices) and one shard's peak: the sort, the owner computation, the
-    merge of the runs it receives (the runs, a level of the merge tree and
-    the merged run) and the compaction, for an even share of the key
-    range (``budget.table_bytes``).  Nothing is allocated."""
+    of ``n_shards`` shards: one shard's rows and one shard's peak.  The
+    rows are its table as ``_sharded`` allocates it (every genome padded
+    to ``n_shards`` slices), which its extraction, sort and owner split
+    hand a kernel, and also an owner's even share of the key range; the
+    peak is the sort, the owner computation, the merge of the runs it
+    receives (the runs, a level of the merge tree and the merged run) and
+    the compaction, for that share (``budget.table_bytes``).  An owner
+    that would receive more is refused by the exchange's own guard
+    (``parallel.distributed``).  Nothing is allocated."""
     W, n_files = layout.n_words, len(sizes)
     compact = 2 * 4 * W + COMPACT_ROW_BYTES
     if n_shards is None:
@@ -180,7 +187,7 @@ def fused_charge(sizes, layout: KeyLayout, L: int,
     genome_rows = 2 * _shard_chunk(sizes, L, n_shards)
     stages = [sort_row_bytes(W), 4 * W + OWNER_ROW_BYTES, 3 * 4 * W, compact]
     rows = n_files * genome_rows
-    return rows * n_shards, table_bytes(layout, rows, genome_rows, stages)
+    return rows, table_bytes(layout, rows, genome_rows, stages)
 
 
 def takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh=None) -> bool:
@@ -189,9 +196,9 @@ def takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh=None) -> bool:
     (or over ``mesh``), else the staged path.  Each device the run uses
     must fit its charge (``budget.device_charge``) in its budget
     (``budget.device_budget``): on a card, a table of fewer than
-    ``budget.ROW_LIMIT`` rows (over a mesh all shards together, since one
-    owner may receive every row) whose peak (``fused_charge``; of every
-    shard the device runs) fits; on the CPU krisp_tpu's rule,
+    ``budget.ROW_LIMIT`` rows (over a mesh each shard's own table, the
+    rows a kernel is handed) whose peak (``fused_charge``; of every shard
+    the device runs) fits; on the CPU krisp_tpu's rule,
     ``KRISP_TPU_WINDOW_BYTES`` a window of each genome's own bucket.  Over
     a process group every process takes the fused path only if all of
     them fit it, so that no process waits in a collective that another
@@ -481,17 +488,15 @@ def _sharded(buffers, layout: KeyLayout, geom: KmerGeometry,
              omit_soft: bool, mesh):
     """krisp_tpu's sharded branch: the genomes padded to one chunk a shard
     (the largest genome over the shard count, at least the window, rounded
-    up to 1024), then ``sharded_intersect_pipeline``.  Returns its (words,
-    counts, gid) rows."""
+    up to 1024), then ``sharded_intersect_pipeline``, whose every step is
+    a stage of its own.  Returns its (words, counts, gid) rows."""
     from ..parallel.distributed import sharded_intersect_pipeline
     n_sh = mesh.size
     chunk = _shard_chunk([b.size for b in buffers], geom.total, n_sh)
     stacked = _stack(buffers, n_sh * chunk)
-    with METRICS.stage("device_pipeline_sharded",
-                       items=2 * len(buffers) * n_sh * chunk):
-        return sharded_intersect_pipeline(mesh, stacked, geom.left,
-                                          geom.mid, geom.right, layout.bits,
-                                          omit_soft=omit_soft)
+    return sharded_intersect_pipeline(mesh, stacked, geom.left, geom.mid,
+                                      geom.right, layout.bits,
+                                      omit_soft=omit_soft)
 
 
 def _group_epilogue(n_keep, gid_h, mid_dec, flank_dec, fid_h, cnt_h, geom,

@@ -1,8 +1,9 @@
 """Per-stage wall timers, program spans and profiler traces (the
 ``krisp_tpu.metrics`` API).
 
-A stage given a CUDA ``device`` synchronises that device at its end, so its
-wall time covers the device work it queued and not only the enqueue.
+A stage given a CUDA ``device``, or a sequence of devices, synchronises
+each CUDA one at its end, so its wall time covers the device work it
+queued and not only the enqueue.
 While a ``torch.profiler`` records, each stage is also a span
 ``krisp:<name>`` over the same interval (``span``), so the trace puts the
 card's idle time to the stage the host was in; with no profiler a span
@@ -36,6 +37,15 @@ def span(name: str):
     return _NO_SPAN
 
 
+def _synchronize(device) -> None:
+    """Wait for the work queued on ``device`` where it is a CUDA device,
+    or on each CUDA device of a list or tuple of them."""
+    for d in device if isinstance(device, (list, tuple)) else (device,):
+        d = torch.device(d)
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 @dataclass
 class StageStat:
     seconds: float = 0.0
@@ -58,8 +68,8 @@ class Metrics:
             try:
                 yield stat
             finally:
-                if device is not None and torch.device(device).type == "cuda":
-                    torch.cuda.synchronize(device)
+                if device is not None:
+                    _synchronize(device)
                 stat.seconds += time.perf_counter() - t0
                 stat.calls += 1
                 stat.items += items

@@ -27,13 +27,17 @@ Per shard: window keys (the window-key kernel's table mode for 2-bit keys,
 torch ``window_keys_bits`` for 4-bit), the sort kernel over all W words
 (sentinel rows last, so each destination's rows are one contiguous sorted
 run), the exchange, a pairwise tree of merge-kernel calls over the runs
-received, then the scan kernel in layout mode and compaction.
+received, then the scan kernel in layout mode and compaction.  Each step
+runs over every shard before the next starts, so the cards work side by
+side, and is a stage of ``metrics.GLOBAL`` of its own.
 
 The exchange ships exact splits: the per-destination row counts go first,
 then each run once (``all_to_all_single`` with split sizes across
 processes, per-destination slices copied to their device in one process).
 No row is dropped, so krisp_tpu's padded ``all_to_all`` capacity and its
-overflow retry have no counterpart.
+overflow retry have no counterpart.  The kernels take fewer than
+``budget.ROW_LIMIT`` rows: each owner's rows are summed over every shard
+before the exchange, and an owner at the limit raises.
 
 ``sharded_kmer_step`` is krisp_tpu's per-shard unique k-mer table with
 genome ids and counts, on the same transport, over ``ops.encode.kmer_keys``
@@ -45,9 +49,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import dna
+from .. import budget, dna
 from ..convert import keys_to_numpy
 from ..device import devices_for_run, resolve_device
+from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout, kmer_keys, num_words
 from ..ops.intersect import _all_window_keys, compact_rows
 from ..ops.merge import merge_sorted_words
@@ -253,6 +258,42 @@ def _upload_slices(mesh: Mesh, array: np.ndarray, chunk: int) -> dict:
         for s, dev in mesh.local}
 
 
+def _owner_counts(mesh: Mesh, keys: dict, layout: KeyLayout,
+                  t_owner: int) -> dict:
+    """{shard: [rows of its sorted ``keys`` each owner receives]}.  A
+    shard's owners are non-decreasing down its sorted table (sentinel rows
+    last, mapped past every owner), so each owner's rows are one run and
+    its count is a difference of run starts; every shard's starts are
+    queued before any is read back, so the cards map their rows side by
+    side."""
+    n = mesh.size
+    starts = {}
+    for s, dev in mesh.local:
+        owner = _owner_of(keys[s][0], valid_rows(keys[s], layout), n,
+                          t_owner)
+        starts[s] = torch.searchsorted(
+            owner, torch.arange(n + 1, dtype=torch.int64, device=dev))
+        del owner
+    return {s: torch.diff(b).tolist() for s, b in starts.items()}
+
+
+def _check_owner_rows(mesh: Mesh, counts: dict) -> None:
+    """Raise where an owner would receive ``budget.ROW_LIMIT`` rows or
+    more (the kernels' 32-bit row ids), before the exchange allocates
+    anything: each owner's rows summed over every shard's ``counts``.
+    The limit is read at call time."""
+    total = mesh.all_reduce_sum({
+        s: torch.tensor(counts[s], dtype=torch.int64, device=dev)
+        for s, dev in mesh.local})
+    limit = budget.ROW_LIMIT
+    for d, rows in enumerate(total.tolist()):
+        if rows >= limit:
+            raise RuntimeError(
+                f"shard {d} would receive {rows} rows; the sort, merge and "
+                f"scan kernels take fewer than {limit} "
+                "(budget.ROW_LIMIT)")
+
+
 def sharded_intersect_pipeline(mesh: Mesh, stacked: np.ndarray, left: int,
                                mid: int, right: int, bits: int,
                                omit_soft: bool = False):
@@ -263,7 +304,18 @@ def sharded_intersect_pipeline(mesh: Mesh, stacked: np.ndarray, left: int,
     same array and uploads its own slice.  Returns (words uint32[n_keep,
     W], counts uint32[n_keep], gid int64[n_keep]) in every process:
     krisp_tpu's ``sharded_intersect_pipeline`` rows, counts and ids (the
-    single-device fused rows and counts; ids offset per shard)."""
+    single-device fused rows and counts; ids offset per shard).
+
+    Each step is a stage of ``metrics.GLOBAL`` that runs over every shard
+    of this process before the next step starts, and waits at its end for
+    every device it queued work on: ``upload`` (bytes of the slices and
+    their halos), ``extract`` (windows keyed), ``sort`` (rows sorted),
+    ``owner`` (rows mapped to their owners and split), ``exchange`` (rows
+    sent to another shard), ``merge`` (rows the owners received and
+    merged), ``scan`` (rows scanned, with the compaction) and ``pull``
+    (survivor rows gathered to the host and assembled).  An owner that
+    would receive ``budget.ROW_LIMIT`` rows or more raises a
+    ``RuntimeError`` at the end of ``owner``, before the exchange."""
     n_files, P = stacked.shape
     n = mesh.size
     assert P % n == 0
@@ -278,47 +330,66 @@ def sharded_intersect_pipeline(mesh: Mesh, stacked: np.ndarray, left: int,
     t_owner = min(10, layout.flank_bits, 32)
     tables = _encoding_tables(bits, omit_soft)
     n_rows = 2 * chunk          # both strands of a genome's chunk windows
+    local = mesh.local
+    devices = list(dict.fromkeys(dev for _, dev in local))
+    rows = len(local) * n_files * n_rows     # every local shard's table
 
-    blocks = _halo_exchange(mesh, _upload_slices(mesh, stacked, chunk),
-                            L - 1)
-    sends = {}
-    for s, dev in mesh.local:
-        table = torch.empty((W, n_files * n_rows), dtype=torch.int32,
-                            device=dev)
-        for f in range(n_files):
-            _all_window_keys(blocks[s][f], f, left, mid, right, bits,
-                             n_files, tables, omit_soft,
-                             out=table[:, f * n_rows:(f + 1) * n_rows])
-        keys = sort_words(table)
-        del table
-        owner = _owner_of(keys[0], valid_rows(keys, layout), n, t_owner)
-        counts = torch.bincount(owner, minlength=n + 1)[:n].tolist()
-        sends[s] = list(keys[:, :sum(counts)].split(counts, dim=1))
-        del keys, owner
-    del blocks
-    received = mesh.all_to_all(sends)
-    del sends
-
-    out = {}
-    for s, dev in mesh.local:
-        runs = received.pop(s)
-        if not any(r.shape[1] for r in runs):
-            out[s] = torch.zeros((W + 2, 0), dtype=torch.int32, device=dev)
-            continue
-        merged = merge_runs(runs)
-        del runs
-        keep, counts, gid = survivor_scan_layout(merged, layout, n_files)
-        (words, counts, gid), _ = compact_rows([merged, counts, gid], keep)
-        out[s] = torch.cat([words, counts[None], gid[None]])
-    parts = [keys_to_numpy(p) for p in mesh.gather(out)]
-
-    nk = np.array([p.shape[1] for p in parts], np.int64)
-    cap = max(int(nk.max()), 1)
-    packed = np.zeros((W + 2, n * cap), np.uint32)
-    for s, p in enumerate(parts):
-        packed[:, s * cap:s * cap + p.shape[1]] = p
-    return assemble_compacted(packed[:W], packed[W],
-                              packed[W + 1].astype(np.int64), nk, cap, n)
+    with METRICS.stage("upload", items=len(local) * n_files * (chunk + L - 1),
+                       device=devices):
+        blocks = _halo_exchange(mesh, _upload_slices(mesh, stacked, chunk),
+                                L - 1)
+    with METRICS.stage("extract", items=rows, device=devices):
+        keys = {}
+        for s, dev in local:
+            table = torch.empty((W, n_files * n_rows), dtype=torch.int32,
+                                device=dev)
+            for f in range(n_files):
+                _all_window_keys(blocks[s][f], f, left, mid, right, bits,
+                                 n_files, tables, omit_soft,
+                                 out=table[:, f * n_rows:(f + 1) * n_rows])
+            keys[s] = table
+        del blocks, table
+    with METRICS.stage("sort", items=rows, device=devices):
+        for s, _ in local:
+            keys[s] = sort_words(keys[s])
+    with METRICS.stage("owner", items=rows, device=devices):
+        counts = _owner_counts(mesh, keys, layout, t_owner)
+        _check_owner_rows(mesh, counts)
+        sends = {s: list(keys[s][:, :sum(c)].split(c, dim=1))
+                 for s, c in counts.items()}
+    del keys
+    moved = sum(m for s, c in counts.items()
+                for d, m in enumerate(c) if d != s)
+    with METRICS.stage("exchange", items=moved, device=devices):
+        received = mesh.all_to_all(sends)
+        del sends
+    got = {s: sum(r.shape[1] for r in runs) for s, runs in received.items()}
+    with METRICS.stage("merge", items=sum(got.values()), device=devices):
+        merged = {s: merge_runs(received.pop(s)) if got[s] else None
+                  for s, _ in local}
+    with METRICS.stage("scan", items=sum(got.values()), device=devices):
+        out = {}
+        for s, dev in local:
+            table = merged.pop(s)
+            if table is None:
+                out[s] = torch.zeros((W + 2, 0), dtype=torch.int32,
+                                     device=dev)
+                continue
+            keep, cnt, gid = survivor_scan_layout(table, layout, n_files)
+            (words, cnt, gid), _ = compact_rows([table, cnt, gid], keep)
+            del table, keep
+            out[s] = torch.cat([words, cnt[None], gid[None]])
+    with METRICS.stage("pull", device=devices) as stat:
+        parts = [keys_to_numpy(p) for p in mesh.gather(out)]
+        del out
+        nk = np.array([p.shape[1] for p in parts], np.int64)
+        cap = max(int(nk.max()), 1)
+        packed = np.zeros((W + 2, n * cap), np.uint32)
+        for s, p in enumerate(parts):
+            packed[:, s * cap:s * cap + p.shape[1]] = p
+        stat.items += int(nk.sum())
+        return assemble_compacted(packed[:W], packed[W],
+                                  packed[W + 1].astype(np.int64), nk, cap, n)
 
 
 def assemble_compacted(words, cnts, gids, nk, cap: int, n_shards: int):

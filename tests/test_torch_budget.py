@@ -160,14 +160,15 @@ def test_charge_rows_are_the_tables_rows(tmp_path):
 
 
 def test_shard_charge_rows_and_shards_a_device(monkeypatch):
-    """Over a mesh every shard holds n_files x 2 x chunk rows; on a card
-    the budget of each device must hold the shards it runs."""
+    """Over a mesh every shard holds n_files x 2 x chunk rows, the rows
+    the charge gives; on a card the budget of each device must hold the
+    shards it runs."""
     sizes = [4_000_000] * 5
     L = sum(SPACER)
     layout = KeyLayout(*SPACER, 2, 5)
     rows, shard = TP.fused_charge(sizes, layout, L, 4)
     chunk = TP._shard_chunk(sizes, L, 4)
-    assert chunk == 1_000_448 and rows == 4 * 5 * 2 * chunk
+    assert chunk == 1_000_448 and rows == 5 * 2 * chunk
     W = layout.n_words
     assert shard == B.table_bytes(
         layout, 5 * 2 * chunk, 2 * chunk,
@@ -207,12 +208,33 @@ def test_row_guard_sends_2_31_rows_staged(monkeypatch):
     monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(1 << 60))
     assert not TP.takes_fused(over, layout, L, CUDA0)
     assert TP.takes_fused(under, layout, L, CUDA0)
-    # over a mesh the guard counts every shard's rows: one owner may
-    # receive them all
-    assert not TP.takes_fused(over, layout, L, CUDA0, Mesh([CUDA0] * 4))
+    # over a mesh the guard counts each shard's own rows, a quarter of
+    # them here; an owner that would receive more raises in the exchange
+    assert TP.fused_charge(over, layout, L, 4)[0] < B.ROW_LIMIT
+    assert TP.takes_fused(over, layout, L, CUDA0, Mesh([CUDA0] * 4))
     # the card's charge holds the rows; the CPU's (krisp_tpu's) counts none
     assert B.device_charge(CUDA0, B.ROW_LIMIT, 5, 7) == (B.ROW_LIMIT, 5)
     assert B.device_charge("cpu", B.ROW_LIMIT, 5, 7) == (0, 7)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("reaches", [True, False])
+def test_row_guard_counts_one_shards_rows(monkeypatch, n_shards, reaches):
+    """Over a mesh a shard whose own table reaches 2**31 rows takes the
+    staged path whatever the budget, on distinct cards and on one card
+    running every shard; a chunk of 1024 bases fewer stays fused."""
+    L = sum(SPACER)
+    layout = KeyLayout(*SPACER, 2, 5)
+    # 5 genomes x 2 strands x chunk rows a shard, chunks of 1024 bases
+    chunk = (-(-B.ROW_LIMIT // 10 // 1024) - (0 if reaches else 1)) * 1024
+    sizes = [n_shards * chunk] * 5
+    rows, _ = TP.fused_charge(sizes, layout, L, n_shards)
+    assert rows == 10 * chunk and (rows >= B.ROW_LIMIT) == reaches
+    monkeypatch.setenv("KRISP_TPU_HBM_BUDGET", str(1 << 60))
+    for devices in ([CUDA0] * n_shards,
+                    [torch.device("cuda", i) for i in range(n_shards)]):
+        assert TP.takes_fused(sizes, layout, L, CUDA0,
+                              Mesh(devices)) != reaches
 
 
 @pytest.mark.parametrize("mode,n", [("complements", 1 << 30),
