@@ -5,7 +5,9 @@
 // is the irreducibly serial bottleneck feeding the device.  This reader
 // scans bytes once (zlib for .gz), strips headers/newlines, and emits the
 // exact buffer layout the device kernels consume: record sequences
-// separated by single NUL sentinel bytes.
+// separated by single NUL sentinel bytes.  The same loop gives the buffer's
+// per-base encoding width, dna.choose_bits's answer on it: 2 when every kept
+// byte is one of ACGTNacgtn or NUL, else 4.
 //
 // Exposed via ctypes (no pybind11 in this environment):
 //   KBuf* kfasta_read(const char* path)
@@ -26,6 +28,7 @@ struct KBuf {
     uint8_t* data;
     size_t len;
     size_t n_records;
+    int bits;  // 2 or 4: the per-base encoding width the buffer takes
 };
 
 struct KBufImpl {
@@ -49,6 +52,13 @@ KBuf* kfasta_read(const char* path) {
     bool at_line_start = true;
     bool first_content = true;
     size_t n_records = 0;
+
+    // 1 for every byte a 2-bit key cannot hold
+    uint8_t wide[256];
+    std::memset(wide, 1, sizeof wide);
+    for (const char* p = "ACGTNacgtn"; *p; ++p) wide[(uint8_t)*p] = 0;
+    wide[0] = 0;  // the record sentinel
+    uint8_t any_wide = 0;
 
     int got;
     while ((got = gzread(f, buf.data(), CHUNK)) > 0) {
@@ -82,6 +92,7 @@ KBuf* kfasta_read(const char* path) {
             if (in_header) continue;
             if (c == ' ' || c == '\t') continue;
             out.push_back(c);
+            any_wide |= wide[c];
         }
     }
     gzclose(f);
@@ -90,6 +101,7 @@ KBuf* kfasta_read(const char* path) {
     impl->pub.data = out.data();
     impl->pub.len = out.size();
     impl->pub.n_records = n_records;
+    impl->pub.bits = any_wide ? 4 : 2;
     return &impl->pub;
 }
 

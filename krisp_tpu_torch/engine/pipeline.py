@@ -42,8 +42,9 @@ mesh of the cards (``_mesh_for_run``), or over the ``mesh`` the caller
 passes (a mesh may repeat a device).
 
 Every host step of a fused search is a stage of ``metrics.GLOBAL`` beside
-the device stages, none inside another: ``read_fasta``, ``detect_bits``
-(bases scanned), ``stack`` (bytes of the padded array), ``upload``
+the device stages, none inside another: ``read_fasta`` (bytes whose
+encoding width the native reader gave), ``detect_bits`` (bytes of every
+genome), ``stack`` (bytes of the padded array), ``upload``
 (padded bytes a genome), ``extract`` (windows a genome), ``pull``,
 ``decode`` (survivor rows), ``decode+group`` (survivor rows) and
 ``filter`` (groups examined); the CLI adds ``render``.  The sharded
@@ -70,7 +71,7 @@ from ..budget import (COMPACT_ROW_BYTES, KRISP_TPU_WINDOW_BYTES,
                       table_bytes)
 from ..convert import keys_to_numpy
 from ..device import devices_for_run, resolve_device
-from ..io.fasta import bucket_size, load_buffer, simple_name
+from ..io.fasta import bucket_size, genome_bits, load_buffer, simple_name
 from ..metrics import GLOBAL as METRICS
 from ..ops.encode import KeyLayout
 from ..ops.intersect import (_all_window_keys, compact_rows, dedup_sorted,
@@ -219,11 +220,17 @@ def takes_fused(sizes, layout: KeyLayout, L: int, dev, mesh=None) -> bool:
 
 def _read_genomes(paths):
     """The genome buffers of the FASTA ``paths`` and the per-base encoding
-    width they take (``detect_bits``)."""
-    with METRICS.stage("read_fasta"):
+    width they take (``detect_bits``'s answer: the widest of the widths
+    ``genome_bits`` gives the buffers, the native reader's own where it read
+    them).  Stage ``read_fasta`` counts the bytes whose width the native
+    reader gave."""
+    with METRICS.stage("read_fasta") as read:
         buffers = [load_buffer(path) for path in paths]
+        widths = [genome_bits(buf) for buf in buffers]
+        read.items += sum(buf.size for buf, (_, by_reader)
+                          in zip(buffers, widths) if by_reader)
     with METRICS.stage("detect_bits", items=sum(b.size for b in buffers)):
-        bits = detect_bits(buffers)
+        bits = max(b for b, _ in widths)
     return buffers, bits
 
 

@@ -15,9 +15,12 @@ import bz2
 import gzip
 import io
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
+
+from ..dna import choose_bits
 
 _GZ_MAGIC = b"\x1f\x8b"
 _BZ2_MAGIC = b"BZh"
@@ -95,17 +98,41 @@ def read_fasta_buffer(path, pad_to: int | None = None):
     return buf, names
 
 
+# the encoding width the native reader gave each buffer it returned, by the
+# buffer's id; an entry goes as its buffer dies (the weakref's callback), so
+# an id found here is that buffer's
+_READER_BITS: dict[int, tuple[weakref.ref, int]] = {}
+
+
+def _keep_reader_bits(buf: np.ndarray, bits: int) -> None:
+    key = id(buf)
+    _READER_BITS[key] = (weakref.ref(buf, lambda _: _READER_BITS.pop(key)),
+                         bits)
+
+
 def load_buffer(path) -> np.ndarray:
     """Genome buffer for the device engine: native C++ reader when
     available (csrc/host/fastaio.cpp via io.native), Python fallback otherwise.
     Both produce the identical sentinel-separated layout (pinned by
     tests/test_native_io.py)."""
     if path != "-" and not str(path).endswith(".bz2"):
-        from .native import read_fasta_buffer_native
-        buf = read_fasta_buffer_native(path)
-        if buf is not None:
-            return buf
+        from .native import read_fasta_native
+        got = read_fasta_native(path)
+        if got is not None:
+            _keep_reader_bits(*got)
+            return got[0]
     return read_fasta_buffer(path)[0]
+
+
+def genome_bits(buf: np.ndarray) -> tuple[int, bool]:
+    """(bits, by_reader): the per-base encoding width ``buf`` takes
+    (``dna.choose_bits``'s answer on it), and whether the native reader gave
+    it as it copied the bases of this very array (true), or ``choose_bits``
+    scanned it now (false: a buffer of the Python reader — ``.bz2``, stdin,
+    no native library — or any array ``load_buffer`` did not return)."""
+    if id(buf) in _READER_BITS:
+        return _READER_BITS[id(buf)][1], True
+    return choose_bits(buf), False
 
 
 def bucket_size(n: int, quantum: int = 1 << 16) -> int:

@@ -3,8 +3,9 @@ on-demand build into ``io/_native/``.
 
 The native reader produces the same sentinel-separated buffer as
 io.fasta.read_fasta_buffer but scans bytes in C++ (one pass, zlib inflate) —
-the GB-scale input path.  Falls back to the Python reader when the toolchain
-or zlib headers are unavailable.
+the GB-scale input path — and in the same pass the per-base encoding width
+the buffer takes (``dna.choose_bits``'s answer).  Falls back to the Python
+reader when the toolchain or zlib headers are unavailable.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ _build_failed = False
 class _KBuf(ctypes.Structure):
     _fields_ = [("data", ctypes.POINTER(ctypes.c_uint8)),
                 ("len", ctypes.c_size_t),
-                ("n_records", ctypes.c_size_t)]
+                ("n_records", ctypes.c_size_t),
+                ("bits", ctypes.c_int)]
 
 
 def get_lib():
@@ -48,9 +50,12 @@ def get_lib():
         return lib
 
 
-def read_fasta_buffer_native(path: str, pad_to: int | None = None):
-    """Native equivalent of io.fasta.read_fasta_buffer (buffer only; record
-    names are not materialized — the engine does not use them)."""
+def read_fasta_native(path: str):
+    """Native equivalent of io.fasta.read_fasta_buffer (record names are not
+    materialized — the engine does not use them): (buffer, bits), where
+    bits is the per-base encoding width (2 or 4) the reader found the
+    buffer takes as it copied the bases; None where the library or the file
+    cannot be opened."""
     lib = get_lib()
     if lib is None:
         return None
@@ -60,8 +65,7 @@ def read_fasta_buffer_native(path: str, pad_to: int | None = None):
     try:
         n = ptr.contents.len
         buf = np.ctypeslib.as_array(ptr.contents.data, shape=(n,)).copy()
+        bits = ptr.contents.bits
     finally:
         lib.kbuf_free(ptr)
-    if pad_to is not None and buf.size < pad_to:
-        buf = np.concatenate([buf, np.zeros(pad_to - buf.size, np.uint8)])
-    return buf
+    return buf, bits

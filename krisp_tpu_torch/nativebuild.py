@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
 import subprocess
 from pathlib import Path
 
@@ -41,14 +42,20 @@ def load_native(src_name: str, lib_path: Path, extra_flags=()):
     if (not lib_path.exists() or not hash_path.exists()
             or hash_path.read_text().strip() != digest):
         lib_path.parent.mkdir(exist_ok=True)
+        # processes that build at once (test workers) each link their own
+        # file and rename it into place, so none loads a half-written one
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         cmd = ["g++", "-O3", "-mtune=native", "-ffp-contract=off", "-shared",
-               "-fPIC", str(src), *extra_flags, "-o", str(lib_path)]
+               "-fPIC", str(src), *extra_flags, "-o", str(tmp)]
         try:
             proc = subprocess.run(cmd, capture_output=True, timeout=120)
         except (OSError, subprocess.TimeoutExpired):
+            tmp.unlink(missing_ok=True)
             return None
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             return None
+        os.replace(tmp, lib_path)
         hash_path.write_text(digest)
     return _dlopen(lib_path)
 

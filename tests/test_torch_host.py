@@ -161,10 +161,9 @@ def fastas(tmp_path):
 def test_load_buffer_matches_and_names_its_reader(fastas, kind, monkeypatch):
     path = fastas[kind]
     calls = []
-    native = tnative.read_fasta_buffer_native
-    monkeypatch.setattr(tnative, "read_fasta_buffer_native",
-                        lambda p, pad_to=None: calls.append(p)
-                        or native(p, pad_to))
+    native = tnative.read_fasta_native
+    monkeypatch.setattr(tnative, "read_fasta_native",
+                        lambda p: calls.append(p) or native(p))
     got = tfasta.load_buffer(path)
     want = jfasta.load_buffer(path)
     np.testing.assert_array_equal(got, want)
@@ -177,7 +176,7 @@ def test_load_buffer_matches_and_names_its_reader(fastas, kind, monkeypatch):
         assert calls == [path]          # the native reader served it
         lib = tnative.get_lib()
         assert lib is not None and "krisp_tpu_torch" in lib._name
-        np.testing.assert_array_equal(native(path), want)
+        np.testing.assert_array_equal(native(path)[0], want)
     assert tfasta.simple_name(path) == jfasta.simple_name(path)
     assert tfasta.bucket_size(70_000) == jfasta.bucket_size(70_000)
 

@@ -2,8 +2,10 @@
 span of every ``Metrics.stage`` call, the whole-search span ``krisp_fasta``
 and ``--profile-dir``, on a CPU search over tiny genomes."""
 
+import bz2
 import json
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,10 +43,19 @@ def _genomes(tmp_path, seed=3, n_files=3, ingroup=2):
     return paths[:ingroup], paths[ingroup:]
 
 
-def _search(tmp_path, *extra):
+def _search(tmp_path, *extra, bz2_file=None):
     """One CLI search on the CPU with the stages reset before it; returns
-    the CSV's path and the genomes' buffer sizes."""
+    the CSV's path and the genomes' buffer sizes.  ``bz2_file``: the index
+    of a genome to write bzip2-compressed, which the Python reader reads."""
     ins, outs = _genomes(tmp_path)
+    if bz2_file is not None:
+        paths = ins + outs
+        plain = Path(paths[bz2_file])
+        packed = plain.with_suffix(".fasta.bz2")
+        packed.write_bytes(bz2.compress(plain.read_bytes()))
+        plain.unlink()
+        paths[bz2_file] = str(packed)
+        ins, outs = paths[:len(ins)], paths[len(ins):]
     csv = tmp_path / "out.csv"
     METRICS.reset()
     assert main([*ins, "--outgroup", *outs, *GEOM, "--device", "cpu",
@@ -122,6 +133,21 @@ def test_search_counts_every_host_step(tmp_path):
     assert st["filter"].items >= rows
     assert st["stack"].items == len(sizes) * bucket_size(max(sizes))
     assert st["detect_bits"].items == sum(sizes)
+
+
+@pytest.mark.parametrize("bz2_file", [None, 0, 2])
+def test_read_fasta_counts_the_bytes_the_reader_classified(tmp_path,
+                                                           bz2_file):
+    """``read_fasta`` counts the bytes whose encoding width the native
+    reader gave as it read them; a ``.bz2`` genome, read in Python and
+    scanned by ``dna.choose_bits``, is left out of the count."""
+    csv, sizes = _search(tmp_path, bz2_file=bz2_file)
+    st = METRICS.stages
+    assert csv.read_text().count("\n") > 1
+    assert st["detect_bits"].items == sum(sizes)
+    left_out = 0 if bz2_file is None else sizes[bz2_file]
+    assert left_out > 0 or bz2_file is None
+    assert st["read_fasta"].items == sum(sizes) - left_out
 
 
 def test_profile_dir_covers_the_render_and_the_writes(tmp_path):
